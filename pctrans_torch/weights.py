@@ -1,0 +1,129 @@
+"""Bridge from flax variables to the port's modules.
+
+``load_flax_variables(model, variables)`` takes the JAX model's variables as
+nested dicts of numpy arrays, ``{"params": ..., "frozen": ...,
+"batch_stats": ...}``, and loads them into a :class:`PCTransModel`:
+
+* Dense kernels ``[in, out]`` become ``nn.Linear`` weights ``[out, in]``;
+* conv kernels HWIO become OIHW;
+* LayerNorm / GroupNorm / BatchNorm ``scale`` becomes ``weight``;
+* the ``frozen`` collection fills the FrozenBatchNorm buffers;
+* ``batch_stats`` fill the BatchNorm running statistics.
+
+Module names follow the flax tree with PyTorch containers
+(``cross3`` -> ``cross_layers.3``, ``Dense_1`` -> ``layers.1``, ...).  Any
+flax leaf without a torch entry, any torch entry left without a value, and
+any shape mismatch raises.
+"""
+
+from __future__ import annotations
+
+import re
+from typing import Dict, Iterator, Mapping, Tuple
+
+import numpy as np
+import torch
+from torch import nn
+
+_INDEXED = re.compile(r"^(input_proj|input_gn|encoder_layer|adapter|layer|seg_head)(\d+)$")
+_DECODER_LAYER = re.compile(r"^(cross|self|ffn)(\d+)$")
+_BLOCK = re.compile(r"^(res\d)_block(\d+)$")
+_NORM = re.compile(r"^(FrozenBatchNorm|BatchNorm|GroupNorm)_(\d+)$")
+_LEAF = {
+    "params": {"kernel": "weight", "scale": "weight", "bias": "bias"},
+    "batch_stats": {"mean": "running_mean", "var": "running_var"},
+    "frozen": {"scale": "scale", "bias": "bias", "mean": "mean", "var": "var"},
+}
+
+
+def _flatten(tree: Mapping, prefix: Tuple[str, ...] = ()) -> Iterator:
+    for k, v in tree.items():
+        if isinstance(v, Mapping):
+            yield from _flatten(v, prefix + (k,))
+        else:
+            yield prefix + (k,), v
+
+
+def _segment(seg: str) -> str:
+    for pat, fmt in ((_INDEXED, r"\1.\2"), (_DECODER_LAYER, r"\1_layers.\2"),
+                     (_BLOCK, r"\1.\2")):
+        if pat.match(seg):
+            return pat.sub(fmt, seg)
+    if seg.startswith("Dense_"):
+        return "layers." + seg[len("Dense_"):]
+    if seg == "Conv_0":
+        return "conv"
+    if _NORM.match(seg):
+        return "norm"        # a ConvNorm's only norm
+    return seg
+
+
+def _backbone_module(path: Tuple[str, ...], params: Mapping) -> str:
+    """backbone/<...>/<module> -> torch module name.  Backbone convs are
+    named, its norms are numbered in call order: the stem's, then per block
+    [shortcut,] conv1, conv2, conv3."""
+    *scope, mod = path[1:]
+    if not scope:                                      # stem
+        return "backbone.stem." + ("conv" if mod == "stem_conv1" else "norm")
+    block = _segment(scope[0])
+    m = _NORM.match(mod)
+    if m is None:
+        return f"backbone.{block}.{mod}.conv"
+    order = (["shortcut"] if "shortcut" in params["backbone"][scope[0]] else [])
+    order += ["conv1", "conv2", "conv3"]
+    return f"backbone.{block}.{order[int(m.group(2))]}.norm"
+
+
+def torch_key(col: str, path: Tuple[str, ...], params: Mapping) -> str:
+    """Torch state-dict key of the flax leaf ``col/path``."""
+    if col not in _LEAF:
+        raise KeyError(f"unknown flax collection {col!r}")
+    *mods, leaf = path
+    if col == "params" and leaf not in _LEAF[col]:
+        mods, leaf_name = mods + [leaf], None        # a bare parameter
+    else:
+        if leaf not in _LEAF[col]:
+            raise KeyError(f"unknown {col} leaf {'/'.join(path)}")
+        leaf_name = _LEAF[col][leaf]
+    if mods and mods[0] == "backbone" and len(mods) > 1:
+        module = _backbone_module(tuple(mods), params)
+    else:
+        module = ".".join(_segment(s) for s in mods)
+    return module if leaf_name is None else f"{module}.{leaf_name}"
+
+
+def _to_torch(arr, leaf: str) -> torch.Tensor:
+    t = torch.from_numpy(np.array(arr, dtype=np.float32))
+    if leaf == "kernel" and t.ndim == 4:
+        return t.permute(3, 2, 0, 1).contiguous()     # HWIO -> OIHW
+    if leaf == "kernel" and t.ndim == 2:
+        return t.t().contiguous()                      # [in, out] -> [out, in]
+    return t
+
+
+def load_flax_variables(model: nn.Module,
+                        variables: Mapping[str, Mapping]) -> None:
+    """Load flax variables (nested dicts of numpy arrays) into ``model``."""
+    state = model.state_dict()
+    params = variables.get("params", {})
+    new: Dict[str, torch.Tensor] = {}
+    for col, tree in variables.items():
+        for path, arr in _flatten(tree):
+            key = torch_key(col, path, params)
+            name = f"{col}/{'/'.join(path)}"
+            if key not in state:
+                raise KeyError(f"flax {name} -> {key}: no such torch entry")
+            if key in new:
+                raise KeyError(f"flax {name} -> {key}: loaded twice")
+            t = _to_torch(arr, path[-1])
+            if t.shape != state[key].shape:
+                raise ValueError(f"flax {name} -> {key}: shape {tuple(t.shape)} "
+                                 f"!= {tuple(state[key].shape)}")
+            new[key] = t
+    missing = [k for k in state
+               if k not in new and not k.endswith("num_batches_tracked")]
+    if missing:
+        raise KeyError(f"torch entries without a flax value: {missing}")
+    for k, v in state.items():
+        new.setdefault(k, v)
+    model.load_state_dict(new, strict=True)
