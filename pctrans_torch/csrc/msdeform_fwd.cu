@@ -70,8 +70,10 @@ msdeform_fwd_kernel(const T* __restrict__ value, const float* __restrict__ loc,
     const T* vl = vb + (int64_t)lv.start[l] * sstride;
     for (int p = 0; p < P; ++p) {
       const int lp = l * P + p;
-      const float x = __ldg(locp + 2 * lp) * W - 0.5f;
-      const float y = __ldg(locp + 2 * lp + 1) * H - 0.5f;
+      // __fmul_rn: no FMA contraction, so x rounds as the twin's loc * W - 0.5
+      // does and an integral coordinate stays integral
+      const float x = __fmul_rn(__ldg(locp + 2 * lp), (float)W) - 0.5f;
+      const float y = __fmul_rn(__ldg(locp + 2 * lp + 1), (float)H) - 0.5f;
       // every corner is outside (also rejects NaN)
       if (!(x > -1.f && x < (float)W && y > -1.f && y < (float)H)) continue;
       const float a = __ldg(wp + lp);

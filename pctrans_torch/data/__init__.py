@@ -1,1 +1,2 @@
-"""Input data for the port (numpy)."""
+"""Input data for the port: padded train targets (torch) and synthetic
+scenes (numpy)."""

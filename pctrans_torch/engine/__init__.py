@@ -1,2 +1,2 @@
-"""Eval step and CVPPP evaluator (mirror of ``pctrans_tpu.engine``), eval
-path only."""
+"""Train step and solver, eval step and CVPPP evaluator (mirror of
+``pctrans_tpu.engine``)."""

@@ -28,10 +28,11 @@ from ..ops.resize_binarize import resize_bilinear_binarize
 def make_eval_step(model: PCTransModel, top_k: Optional[int],
                    threshold: float) -> Callable:
     logit_t = math.log(threshold / (1.0 - threshold))
-    model.eval()
 
     @torch.inference_mode()
     def eval_step(images: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        # at every call: a train step between two evals leaves train mode on
+        model.eval()
         images = images.float()
         masks = model(images)["pred_masks"].float()  # [B, Q, h, w]
         peak = masks.amax(dim=(2, 3))

@@ -35,13 +35,37 @@ class FrozenBatchNorm(nn.Module):
         return x * w.to(x.dtype)[:, None, None] + b.to(x.dtype)[:, None, None]
 
 
+class BatchNorm(nn.BatchNorm2d):
+    """flax ``nn.BatchNorm(momentum=0.9, epsilon=1e-5)`` (``layers.py:73-79``).
+
+    Train mode normalises with the batch statistics and updates the running
+    ones with momentum 0.1 from the *biased* batch variance, as flax does
+    (``nn.BatchNorm2d`` would use the unbiased one).  Eval mode uses the
+    running statistics.  SyncBN on one card is this module.
+    """
+
+    def __init__(self, features: int):
+        super().__init__(features, eps=1e-5, momentum=0.1)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training:
+            return super().forward(x)
+        with torch.no_grad():
+            var, mean = torch.var_mean(x.float(), dim=(0, 2, 3), unbiased=False)
+            m = self.momentum
+            self.running_mean.mul_(1.0 - m).add_(mean * m)
+            self.running_var.mul_(1.0 - m).add_(var * m)
+        return F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0,
+                            self.eps)
+
+
 def get_norm(name: str, features: int) -> Optional[nn.Module]:
-    """detectron2 ``get_norm`` mirror (``layers.py:64-86``) for eval: BN and
-    SyncBN use their running statistics (eps 1e-5), GN has 32 groups."""
+    """detectron2 ``get_norm`` mirror (``layers.py:64-86``): BN and SyncBN
+    are :class:`BatchNorm` (eps 1e-5), GN has 32 groups."""
     if not name:
         return None
     if name in ("BN", "SyncBN"):
-        return nn.BatchNorm2d(features, eps=1e-5)
+        return BatchNorm(features)
     if name == "GN":
         return nn.GroupNorm(32, features, eps=1e-5)
     if name == "FrozenBN":

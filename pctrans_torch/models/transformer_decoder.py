@@ -4,8 +4,9 @@
 Object queries carry 2D reference points refined per layer; a query sine
 embedding is concatenated per head with the content query, so
 cross-attention runs at 2*d for Q/K while values stay at d; masks come from
-a CondInst dynamic 1x1-conv head (the K3 render) and, thresholded at sigmoid
-0.5, mask the next layer's cross-attention.  Feature levels are visited
+a CondInst dynamic 1x1-conv head (the K3 render in eval, its einsum twin
+in train mode) and, thresholded at sigmoid 0.5, mask the next layer's
+cross-attention.  Feature levels are visited
 round-robin.
 """
 
@@ -17,7 +18,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..ops.render import dynamic_mask_render
+from ..ops.render import dynamic_mask_render, render_twin
 from ..ops.resize import resize_bilinear
 from .layers import (MLP, ConvNorm, gen_sineembed_for_position,
                      inverse_sigmoid, position_embedding_sine)
@@ -235,9 +236,13 @@ class MultiScaleMaskedTransformerDecoder(nn.Module):
         w2 = w2.reshape(B, Q, ch, ch)
         w3 = w3.reshape(B, Q, 1, ch)
         feats = mask_feat.flatten(2).transpose(1, 2)          # [B, HW, Cm]
-        mask_logits = dynamic_mask_render(
-            feats, inst_xy, w1, w2, w3, b1, b2, b3, (Hm, Wm), stride,
-            self.rel_coord, impl=impl).reshape(B, Q, Hm, Wm).to(dtype)
+        args = (feats, inst_xy, w1, w2, w3, b1, b2, b3, (Hm, Wm), stride,
+                self.rel_coord)
+        # train mode renders with the einsum twin under autograd, as the JAX
+        # train graph does (transformer_decoder.py:398-400); eval takes K3
+        mask_logits = (render_twin(*args) if self.training else
+                       dynamic_mask_render(*args, impl=impl))
+        mask_logits = mask_logits.reshape(B, Q, Hm, Wm).to(dtype)
 
         attn = resize_bilinear(mask_logits, attn_size)
         masked = (torch.sigmoid(attn) < 0.5).reshape(B, Q, -1)

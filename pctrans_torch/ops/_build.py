@@ -37,6 +37,9 @@ _SIGNATURES = {
     # is_bf16, stream
     "pctrans_msdeform_fwd": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P,
                              _I, _P],
+    # value, loc, weights, grad, d_value, d_loc, d_weights, B, S, M, D, Lq,
+    # L, P, shapes (host int[2L]), is_bf16, stream
+    "pctrans_msdeform_bwd": [_P] * 7 + [_I] * 7 + [_P, _I, _P],
     # feats, inst_xy, w1, w2, w3, b1, b2, b3, out, B, Q, Hm, Wm, Cm,
     # rel_coord, stride, stream
     "pctrans_render_fwd": [_P] * 9 + [_I] * 7 + [_P],
@@ -104,7 +107,7 @@ def load_kernels() -> ctypes.CDLL:
 
 
 def use_kernel(t: torch.Tensor, impl: Optional[str], op: str) -> bool:
-    """Dispatch rule shared by the three wrappers.
+    """Dispatch rule shared by the kernel wrappers.
 
     ``impl=None``: a CPU tensor takes the plain twin, a CUDA tensor the
     kernel; any other device raises.  ``impl="twin"`` runs the twin on any
@@ -122,13 +125,14 @@ def use_kernel(t: torch.Tensor, impl: Optional[str], op: str) -> bool:
 
 
 def check_inputs(op: str, *tensors: torch.Tensor) -> None:
-    """Kernels are forward-only and take contiguous CUDA tensors on one
-    device."""
+    """A raw launch takes contiguous CUDA tensors on one device, none of
+    which needs grad: autograd reaches the kernels only through
+    ``msdeform.MSDeformAttnFunction``, which passes detached tensors."""
     dev = tensors[0].device
     for t in tensors:
         if t.requires_grad:
-            raise RuntimeError(f"{op}: the CUDA kernel is forward-only; "
-                               "an input requires grad")
+            raise RuntimeError(f"{op}: a raw kernel launch is forward-only "
+                               "for autograd; an input requires grad")
         if t.device != dev:
             raise RuntimeError(f"{op}: inputs on {t.device} and {dev}")
         if not t.is_contiguous():

@@ -13,7 +13,8 @@ import math
 import pytest
 import torch
 
-from pctrans_torch.ops.msdeform import ms_deform_attn
+from pctrans_torch.ops import msdeform
+from pctrans_torch.ops.msdeform import ms_deform_attn, ms_deform_attn_backward
 from pctrans_torch.ops.render import dynamic_mask_render
 from pctrans_torch.ops.resize import resize_bilinear
 from pctrans_torch.ops.resize_binarize import resize_bilinear_binarize
@@ -112,8 +113,64 @@ def test_render_kernel_refuses_unaligned_channels(dev):
 
 
 def test_msdeform_kernel_refuses_grad(dev):
+    """A raw K1 launch refuses a tensor that needs grad: autograd reaches
+    the kernels only through MSDeformAttnFunction."""
     value = torch.randn(1, 6, 2, 4, device=dev, requires_grad=True)
     loc = torch.rand(1, 5, 2, 1, 2, 2, device=dev)
     w = torch.rand(1, 5, 2, 1, 2, device=dev)
     with pytest.raises(RuntimeError, match="forward-only"):
-        ms_deform_attn(value, [(2, 3)], loc, w)
+        msdeform._launch_forward(value, [(2, 3)], loc, w)
+
+
+def _on_grid(loc, shapes, share, g):
+    """Put ``share`` of the samples on exactly integral pixel coordinates."""
+    loc = loc.clone()
+    for lid, (H, W) in enumerate(shapes):
+        size = torch.tensor([W, H], dtype=torch.float32, device=loc.device)
+        k = torch.randint(-1, max(H, W) + 1, loc[:, :, :, lid].shape,
+                          device=loc.device, generator=g)
+        pick = torch.rand(loc[:, :, :, lid].shape, device=loc.device,
+                          generator=g) < share
+        loc[:, :, :, lid] = torch.where(pick, (k + 0.5) / size, loc[:, :, :, lid])
+    return loc
+
+
+@pytest.mark.parametrize("M,D,Lq,shapes", [
+    (8, 16, 37, [(5, 7), (3, 4), (9, 2)]),
+    (4, 8, 1, [(6, 5)]),
+    (2, 32, 300, [(11, 13), (6, 7)]),
+    (3, 16, 129, [(4, 4), (2, 3)]),          # 48-thread rows: a partial warp
+])
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.bfloat16, 1e-2)])
+@pytest.mark.parametrize("on_grid", [False, True])
+def test_msdeform_backward_kernel_matches_twin_autograd(dev, M, D, Lq, shapes,
+                                                        dtype, tol, on_grid):
+    """K2 against the twin's autograd, with Lq not a multiple of the block's
+    queries and, on_grid, half the samples at integral pixel coordinates
+    (where both give a zero location derivative)."""
+    g = torch.Generator(device=dev).manual_seed(3)
+    B, L, P = 2, len(shapes), 3
+    S = sum(h * w for h, w in shapes)
+    value = torch.randn(B, S, M, D, device=dev, generator=g).to(dtype)
+    loc = torch.rand(B, Lq, M, L, P, 2, device=dev, generator=g) * 1.4 - 0.2
+    if on_grid:
+        loc = _on_grid(loc, shapes, 0.5, g)
+    w = torch.rand(B, Lq, M, L, P, device=dev, generator=g)
+    gout = torch.randn(B, Lq, M * D, device=dev, generator=g).to(dtype)
+
+    def grads(impl):
+        prim = [t.clone().requires_grad_() for t in (value, loc, w)]
+        out = ms_deform_attn(prim[0], shapes, prim[1], prim[2], impl=impl)
+        out.backward(gout)
+        return [p.grad for p in prim]
+
+    before = (ms_deform_attn.launches, ms_deform_attn_backward.launches)
+    ours = grads(None)
+    torch.cuda.synchronize()
+    assert (ms_deform_attn.launches, ms_deform_attn_backward.launches) == \
+        (before[0] + 1, before[1] + 1)
+    ref = grads("twin")
+    for name, a, b in zip(("value", "locations", "weights"), ours, ref):
+        assert a.dtype == b.dtype and a.shape == b.shape, name
+        assert _rel(a, b) <= tol, name
