@@ -5,12 +5,16 @@
 Phases:
   1. device: require CUDA, print the card's name and power limit, disable
      TF32 for the f32 phases;
-  2. build the CUDA kernels from pctrans_torch/csrc (first use);
-  3. kernel gates: K1 (ms-deform forward) at the eval shapes, K2 (ms-deform
-     backward) at the train shapes with a share of samples on integral
-     pixel coordinates, K3 (mask render) and K4 (upsample+binarize) against
-     their plain PyTorch twins on the card, then each one's time beside its
-     twin's (K2 timed as K1+K2 forward+backward against the twin's);
+  2. build the CUDA kernels from pctrans_torch/csrc (one nvcc per source,
+     all at once);
+  3. kernel gates: K1 (ms-deform forward) and K5 (its separable form) at
+     the eval shapes, K5 also against K1 and at the entry-point run's train
+     and validation shapes (448x448 levels, batch 2 and 4), K2 (ms-deform
+     backward) at the
+     train shapes with a share of samples on integral pixel coordinates,
+     K3 (mask render) and K4 (upsample+binarize) against their plain
+     PyTorch twins on the card, then each one's time beside its twin's (K2
+     timed as K1+K2 forward+backward against the twin's, K5 beside K1);
   4. the f32 forward of the full-width CVPPP recipe (seeded random weights)
      through the kernels and through the twins, on one batch of four
      synthetic 530x500 scenes;
@@ -22,7 +26,15 @@ Phases:
   7. the bf16 recipe as trained: ``make_train_step`` with AdamW and
      WarmupPolyLR, one warm-up step then 5 counted steps on batches of two
      448x448 scenes, with launch counters (K1 = K2 = 6 per step, K3 = 0);
-  8. one JSON line of kernel results, then the final status line.
+  8. the entry points as users run them: ``scripts/main_torch.py`` with the
+     two CVPPP YAMLs on synthetic data (4 bf16 iterations at 448x448 batch
+     2, checkpoints at 2 and 4, validation at 4) under
+     ``PCTRANS_MSDA_IMPL=pallas`` (K5 = 6 per forward, K1 = 0, K2 = 6 per
+     step), then ``scripts/eval_torch.py`` sweeping the two checkpoints
+     under the default dispatch (K1 = 6, K3 = 10, K4 = 1 per forward);
+  9. one JSON line of kernel results (each with its bound on the card and,
+     where one PyTorch call computes the same function, that call's time),
+     then the final status line.
 
 Synthetic scenes come from ``pctrans_torch.data.synthetic``; nothing here
 or in ``pctrans_torch`` imports JAX or the JAX package.
@@ -33,10 +45,13 @@ from __future__ import annotations
 import dataclasses
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -49,6 +64,12 @@ TRAIN_HW = (448, 448)          # MODEL.INPUT_SIZE
 MAX_INSTANCES = 64             # MODEL.MAX_INSTANCES
 N_TRAIN_STEPS = 5              # counted, after one warm-up step
 SEED = 0                       # of the weights, the scenes and the gates' inputs
+REPO = Path(__file__).resolve().parent
+ENTRY_ITERS = 4                # iterations of the entry-point run
+# H100 SXM peaks (NVIDIA data sheet) for the bounds: HBM bytes per second and
+# f32 FLOP/s outside the tensor cores (every kernel here computes in f32)
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_F32_FLOP_PER_S = 67e12
 
 
 def card_line() -> str:
@@ -102,7 +123,36 @@ def timed(name: str, kernel, twin) -> dict:
     dev_ms, dev_plain = device_ms(kernel), device_ms(twin)
     print(f"{name}: kernel {ms:.4f} ms/call ({dev_ms:.4f} ms device), "
           f"twin {plain:.4f} ms/call ({dev_plain:.4f} ms device)")
-    return {"ms": ms, "plain_ms": plain}
+    return {"ms": ms, "plain_ms": plain, "device_ms": dev_ms}
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def bound(name: str, n_bytes: float, flops: float, dev_ms: float) -> dict:
+    """The least time the card could take: the larger of the bytes moved
+    (each input read once, each output written once) over HBM's rate and
+    the f32 operations over the CUDA cores' rate."""
+    t_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_F32_FLOP_PER_S * 1e3
+    by = "bytes" if t_bytes >= t_ops else "operations"
+    ms = max(t_bytes, t_ops)
+    print(f"{name} bound: {n_bytes / 1e6:.1f} MB -> {t_bytes * 1e3:.2f} us, "
+          f"{flops / 1e9:.3f} GFLOP -> {t_ops * 1e3:.2f} us; bound {ms * 1e3:.2f} us "
+          f"by {by}, {ms / dev_ms:.1%} of the kernel's {dev_ms:.4f} ms device time")
+    return {"bound_ms": ms, "bound_by": by}
+
+
+def msdeform_samples_inside(shapes, loc) -> int:
+    """Samples with a corner inside their level's map: the kernels skip the
+    others, so only these cost operations."""
+    n = 0
+    for lid, (H, W) in enumerate(shapes):
+        x = loc[:, :, :, lid, :, 0] * W - 0.5
+        y = loc[:, :, :, lid, :, 1] * H - 0.5
+        n += int(((x > -1) & (x < W) & (y > -1) & (y < H)).sum())
+    return n
 
 
 def scene_batches(n_batches: int, seed: int, batch: int = BATCH, hw=IMAGE_HW):
@@ -116,17 +166,36 @@ def scene_batches(n_batches: int, seed: int, batch: int = BATCH, hw=IMAGE_HW):
 
 
 # ------------------------------------------------------------ kernel gates
-def gate_msdeform(dev, g):
-    from pctrans_torch.ops.msdeform import ms_deform_attn
+EVAL_SHAPES = [(17, 16), (34, 32), (67, 63)]     # res5, res4, res3 of 530x500
+TRAIN_SHAPES = [(14, 14), (28, 28), (56, 56)]    # res5, res4, res3 of 448x448
 
-    shapes = [(17, 16), (34, 32), (67, 63)]       # res5, res4, res3 of 530x500
+
+def msdeform_inputs(dev, g, batch=BATCH, shapes=EVAL_SHAPES):
     S = sum(h * w for h, w in shapes)
     M, D, L, P = 8, 16, 3, 4
-    value = torch.randn(BATCH, S, M, D, device=dev, generator=g)
+    value = torch.randn(batch, S, M, D, device=dev, generator=g)
     # some samples fall outside the map (zero padding path)
-    loc = torch.rand(BATCH, S, M, L, P, 2, device=dev, generator=g) * 1.2 - 0.1
-    w = torch.rand(BATCH, S, M, L * P, device=dev, generator=g).softmax(-1)
-    w = w.reshape(BATCH, S, M, L, P)
+    loc = torch.rand(batch, S, M, L, P, 2, device=dev, generator=g) * 1.2 - 0.1
+    w = torch.rand(batch, S, M, L * P, device=dev, generator=g).softmax(-1)
+    return value, shapes, loc, w.reshape(batch, S, M, L, P)
+
+
+def msdeform_bound(name, value, shapes, loc, w, dev_ms) -> dict:
+    """Bound of one forward call (K1 or K5: the same work) on these inputs:
+    per sample inside the map, 4 corners x D channels of multiply-add plus
+    the weighted sum, ~10 FLOP per channel."""
+    B, Lq, M, D = value.shape[0], loc.shape[1], value.shape[2], value.shape[3]
+    out_bytes = B * Lq * M * D * value.element_size()
+    flops = msdeform_samples_inside(shapes, loc) * (10 * D + 10)
+    return bound(name, nbytes(value, loc, w) + out_bytes, flops, dev_ms)
+
+
+def gate_msdeform(dev, inputs):
+    from pctrans_torch.ops.msdeform import ms_deform_attn
+
+    value, shapes, loc, w = inputs
+    S, M, D = value.shape[1:]
+    L, P = loc.shape[3:5]
     out = ms_deform_attn(value, shapes, loc, w)
     torch.cuda.synchronize()
     twin = ms_deform_attn(value, shapes, loc, w, impl="twin")
@@ -140,7 +209,56 @@ def gate_msdeform(dev, g):
         raise AssertionError("K1 disagrees with its twin")
     times = timed("K1 bf16 value", lambda: ms_deform_attn(vb, shapes, loc, w),
                   lambda: ms_deform_attn(vb, shapes, loc, w, impl="twin"))
-    return {"max_abs_err": float((out - twin).abs().max()), **times}
+    return {"max_abs_err": float((out - twin).abs().max()), **times,
+            **msdeform_bound("K1", vb, shapes, loc, w, times["device_ms"]),
+            "library_ms": None}
+
+
+def check_separable(inputs) -> float:
+    """K5 against its separable twin and against K1 on ``inputs``; returns
+    the largest f32 absolute difference from the twin."""
+    from pctrans_torch.ops.msdeform import (ms_deform_attn, ms_deform_attn_separable,
+                                            ms_deform_attn_separable_twin)
+
+    value, shapes, loc, w = inputs
+    errs = {}
+    for name, v in (("f32", value), ("bf16", value.bfloat16())):
+        out = ms_deform_attn_separable(v, shapes, loc, w)
+        torch.cuda.synchronize()
+        twin = ms_deform_attn_separable_twin(v, shapes, loc, w)
+        errs[name] = (rel_fro(out, twin),
+                      rel_fro(out, ms_deform_attn(v, shapes, loc, w, impl="pallas2")))
+        if name == "f32":
+            worst = float((out - twin).abs().max())
+    print(f"K5 ms_deform_attn_separable [B={value.shape[0]}, S=Lq={value.shape[1]}, "
+          f"levels {shapes}]: rel-Fro against its twin / K1: f32 {errs['f32'][0]:.3e} / "
+          f"{errs['f32'][1]:.3e} (<= 1e-5), bf16 {errs['bf16'][0]:.3e} / "
+          f"{errs['bf16'][1]:.3e} (<= 1e-2)")
+    if not (max(errs["f32"]) <= 1e-5 and max(errs["bf16"]) <= 1e-2):
+        raise AssertionError("K5 disagrees with its twin or with K1")
+    return worst
+
+
+def gate_separable(dev, g, inputs, k1):
+    """K5 against its separable twin and against K1 on the K1 gate's inputs
+    (timed beside both) and at the shapes the entry-point run gives it: the
+    448x448 levels at the train batch and at the validation batch."""
+    from pctrans_torch.ops.msdeform import (ms_deform_attn_separable,
+                                            ms_deform_attn_separable_twin)
+
+    worst = check_separable(inputs)
+    for batch in (TRAIN_BATCH, BATCH):
+        check_separable(msdeform_inputs(dev, g, batch, TRAIN_SHAPES))
+    value, shapes, loc, w = inputs
+    vb = value.bfloat16()
+    times = timed("K5 bf16 value", lambda: ms_deform_attn_separable(vb, shapes, loc, w),
+                  lambda: ms_deform_attn_separable_twin(vb, shapes, loc, w))
+    print(f"K5 beside K1 on the same inputs: K5 {times['ms']:.4f} ms/call "
+          f"({times['device_ms']:.4f} device), K1 {k1['ms']:.4f} ms/call "
+          f"({k1['device_ms']:.4f} device), K5/K1 device {times['device_ms'] / k1['device_ms']:.1f}x")
+    return {"max_abs_err": worst, **times,
+            **msdeform_bound("K5", vb, shapes, loc, w, times["device_ms"]),
+            "library_ms": None}
 
 
 def gate_msdeform_backward(dev, g):
@@ -149,7 +267,7 @@ def gate_msdeform_backward(dev, g):
     coordinates, where both take the hat derivative 0."""
     from pctrans_torch.ops.msdeform import ms_deform_attn
 
-    shapes = [(14, 14), (28, 28), (56, 56)]       # res5, res4, res3 of 448x448
+    shapes = TRAIN_SHAPES
     S = sum(h * w for h, w in shapes)
     B, M, D, L, P = TRAIN_BATCH, 8, 16, 3, 4
     value = torch.randn(B, S, M, D, device=dev, generator=g)
@@ -194,7 +312,14 @@ def gate_msdeform_backward(dev, g):
 
     times = timed("K1+K2 forward+backward, bf16 value", lambda: fwd_bwd(None),
                   lambda: fwd_bwd("twin"))
-    return {"max_abs_err": worst, **times}
+    # the timed work: forward and backward; inputs value, loc, w, grad_out
+    # read once, out, d_value, d_loc, d_w written once; ~44 FLOP per inside
+    # sample and channel (forward 10, backward's sample, dot, two location
+    # terms and four d_value terms)
+    n_bytes = 2 * nbytes(vb, gb, lr, wr)
+    flops = msdeform_samples_inside(shapes, loc) * 44 * D
+    return {"max_abs_err": worst, **times,
+            **bound("K1+K2", n_bytes, flops, times["device_ms"]), "library_ms": None}
 
 
 def gate_render(dev, g):
@@ -221,7 +346,11 @@ def gate_render(dev, g):
         raise AssertionError("K3 disagrees with its twin")
     times = timed("K3", lambda: dynamic_mask_render(*args),
                   lambda: dynamic_mask_render(*args, impl="twin"))
-    return {"max_abs_err": float((out - twin).abs().max()), **times}
+    # three 1x1 layers per (query, pixel): ch*(Cm+2) + ch*ch + ch FMAs
+    flops = 2 * BATCH * Q * Hm * Wm * (ch * (Cm + 2) + ch * ch + ch)
+    n_bytes = nbytes(feats, inst_xy, w1, w2, w3, b1, b2, b3, out)
+    return {"max_abs_err": float((out - twin).abs().max()), **times,
+            **bound("K3", n_bytes, flops, times["device_ms"]), "library_ms": None}
 
 
 def gate_resize_binarize(dev, g):
@@ -248,7 +377,16 @@ def gate_resize_binarize(dev, g):
     times = timed("K4", lambda: resize_bilinear_binarize(x, IMAGE_HW, logit_t),
                   lambda: resize_bilinear_binarize(x, IMAGE_HW, logit_t,
                                                    impl="twin"))
-    return {"max_abs_err": float((out.int() - twin.int()).abs().max()), **times}
+    # yardstick of two PyTorch calls (no single call binarizes): upsample
+    # with F.interpolate, then compare
+    library = time_ms(lambda: torch.nn.functional.interpolate(
+        x, IMAGE_HW, mode="bilinear", align_corners=False) > logit_t)
+    print(f"K4 yardstick F.interpolate(bilinear) > t: {library:.4f} ms/call")
+    # two lerps along each axis and a compare, ~10 FLOP per output pixel
+    flops = 10 * out.numel()
+    return {"max_abs_err": float((out.int() - twin.int()).abs().max()), **times,
+            **bound("K4", nbytes(x, out), flops, times["device_ms"]),
+            "library_ms": library}
 
 
 # ----------------------------------------------------------------- slices
@@ -486,6 +624,101 @@ def train_bf16(dev, card):
     return launches
 
 
+def entry_points(card):
+    """``scripts/main_torch.py`` as a user runs it, under
+    ``PCTRANS_MSDA_IMPL=pallas`` (K5), then ``scripts/eval_torch.py`` over
+    its checkpoints under the default dispatch (K1)."""
+    import pctrans_torch.engine.trainer as trainer_module
+    from pctrans_torch.ops.msdeform import (ms_deform_attn, ms_deform_attn_backward,
+                                            ms_deform_attn_separable)
+    from pctrans_torch.ops.render import dynamic_mask_render
+    from pctrans_torch.ops.resize_binarize import resize_bilinear_binarize
+
+    sys.path.insert(0, str(REPO / "scripts"))
+    import eval_torch
+    import main_torch
+
+    counters = (ms_deform_attn, ms_deform_attn_separable, ms_deform_attn_backward,
+                dynamic_mask_render, resize_bilinear_binarize)
+    step_ms = []
+    make_step = trainer_module.make_train_step
+
+    def timed_steps(*args, **kwargs):        # host ms per train step
+        step = make_step(*args, **kwargs)
+
+        def run(batch, **kw):
+            t0 = time.perf_counter()
+            out = step(batch, **kw)
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            return out
+        return run
+
+    (REPO / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=REPO / "build") as tmp:
+        cfg_args = ["--config-base", str(REPO / "configs/CVPPP/CVPPP-PCTrans-Base.yaml"),
+                    "--config-file", str(REPO / "configs/CVPPP/CVPPP-PCTrans.yaml")]
+        opts = ["DATASET.DATA_TYPE", "synthetic",
+                "SOLVER.ITERATION_TOTAL", str(ENTRY_ITERS), "SOLVER.ITERATION_SAVE", "2",
+                "SOLVER.START_SAVE", "0", "SOLVER.ITERATION_VAL", str(ENTRY_ITERS),
+                "DATASET.OUTPUT_PATH", tmp, "INFERENCE.OUTPUT_PATH", f"{tmp}/test",
+                "MONITOR.TENSORBOARD", "False", "MONITOR.ITERATION_NUM", "[1, 200]"]
+        for fn in counters:
+            fn.launches = 0
+        trainer_module.make_train_step = timed_steps
+        os.environ["PCTRANS_MSDA_IMPL"] = "pallas"
+        try:
+            t0 = time.perf_counter()
+            trainer = main_torch.main(cfg_args + ["--opts", *opts])
+            train_wall = time.perf_counter() - t0
+        finally:
+            del os.environ["PCTRANS_MSDA_IMPL"]
+            trainer_module.make_train_step = make_step
+        k1, k5, k2, k3, k4 = [fn.launches for fn in counters]
+        fwd = trainer.evaluator.forwards
+        c = trainer.model_config
+        print(f"main_torch.py, PCTRANS_MSDA_IMPL=pallas, {ENTRY_ITERS} bf16 iterations "
+              f"of {trainer.cfg.SOLVER.SAMPLES_PER_BATCH}x{trainer.cfg.MODEL.INPUT_SIZE} + "
+              f"{fwd} validation forwards: launches K5 {k5}, K1 {k1}, K2 {k2}, K3 {k3}, K4 {k4}")
+        if [k5, k1, k2, k3, k4] != [c.enc_layers * (ENTRY_ITERS + fwd), 0,
+                                    c.enc_layers * ENTRY_ITERS, (c.dec_layers + 1) * fwd, fwd]:
+            raise AssertionError("entry-point launch counts do not match the run")
+        lines = [json.loads(l) for l in Path(tmp, "metrics.jsonl").read_text().splitlines()]
+        train = [r for r in lines if "eval" not in r]
+        evals = [r["eval"] for r in lines if "eval" in r]
+        if ([r["iter"] for r in train] != list(range(ENTRY_ITERS)) or len(evals) != 1
+                or any(len(r) < 10 for r in train)
+                or not all(math.isfinite(v) for r in train + evals for v in r.values())):
+            raise AssertionError(f"metrics.jsonl records {lines}")
+        saved = sorted(f for f in os.listdir(tmp) if f.endswith(".pth.tar"))
+        if saved != ["checkpoint_000002.pth.tar", "checkpoint_000004.pth.tar",
+                     "checkpoint_best.pth.tar"]:
+            raise AssertionError(f"checkpoints {saved}")
+        k5_train = k5
+        print(f"per-loss records of {len(train[0]) - 2} terms, finite; validation "
+              f"{evals[0]}; checkpoints {saved}")
+        print(f"host ms per train iteration (synchronised): "
+              + " ".join(f"{t:.1f}" for t in step_ms)
+              + f"; main_torch.py wall {train_wall:.3f} s, on {card}")
+
+        for fn in counters:
+            fn.launches = 0
+        t0 = time.perf_counter()
+        records = eval_torch.main(cfg_args + ["--start", "0", "--out", f"{tmp}/sweep.json",
+                                              "--opts", *opts])
+        sweep_wall = time.perf_counter() - t0
+        k1, k5, k2, k3, k4 = [fn.launches for fn in counters]
+        print(f"eval_torch.py, default dispatch: {len(records)} records "
+              f"{records}; launches K1 {k1}, K3 {k3}, K4 {k4} (one per forward), "
+              f"K5 {k5}, K2 {k2}; sweep wall {sweep_wall:.3f} s, on {card}")
+        if [r["iter"] for r in records] != [2, 4] or \
+                json.loads(Path(tmp, "sweep.json").read_text()) != records:
+            raise AssertionError("the sweep did not score the two checkpoints")
+        if k4 < 4 or [k1, k3, k5, k2] != [c.enc_layers * k4, (c.dec_layers + 1) * k4, 0, 0]:
+            raise AssertionError("sweep launch counts do not match its forwards")
+    return k5_train
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -511,15 +744,22 @@ def main() -> int:
                 print("ptxas:", line.strip())
 
     g = torch.Generator(device=dev).manual_seed(SEED)
-    gates = [gate_msdeform(dev, g), gate_msdeform_backward(dev, g),
-             gate_render(dev, g), gate_resize_binarize(dev, g)]
+    eval_inputs = msdeform_inputs(dev, g)
+    k1_gate = gate_msdeform(dev, eval_inputs)
+    k5_gate = gate_separable(dev, g, eval_inputs, k1_gate)
+    del eval_inputs
+    gates = [k1_gate, gate_msdeform_backward(dev, g), gate_render(dev, g),
+             gate_resize_binarize(dev, g), k5_gate]
     slice_f32(dev)
     train_f32_backward(dev)
     k1_eval, k3, k4 = slice_bf16(dev, card)
     k1, k2, _ = train_bf16(dev, card)
+    k5 = entry_points(card)
     print(f"main paths: train K1 {k1}, K2 {k2}; eval K1 {k1_eval}, K3 {k3}, "
-          f"K4 {k4} (the kernels line reports K1/K2 from train, K3/K4 from eval)")
-    launches = [k1, k2, k3, k4]
+          f"K4 {k4}; entry points under PCTRANS_MSDA_IMPL=pallas K5 {k5} (the "
+          "kernels line reports K1/K2 from train, K3/K4 from eval, K5 from the "
+          "entry-point run)")
+    launches = [k1, k2, k3, k4, k5]
 
     meta = [("K1 ms_deform_attn forward", "pctrans_torch/csrc/msdeform_fwd.cu",
              "pctrans_tpu/ops/msdeform_pallas2.py:73"),
@@ -528,10 +768,14 @@ def main() -> int:
              "pctrans_tpu/ops/msdeform_pallas2.py:118"),
             ("K3 dynamic_mask_render", "pctrans_torch/csrc/render.cu",
              "pctrans_tpu/ops/render_pallas.py:96"),
-            ("K4 resize_bilinear_binarize", "pctrans_torch/csrc/resize_binarize.cu",
-             "pctrans_tpu/ops/resize_pallas.py:52")]
+            ("K4 resize_bilinear_binarize (library_ms: F.interpolate(bilinear) > t, "
+             "a two-call yardstick)", "pctrans_torch/csrc/resize_binarize.cu",
+             "pctrans_tpu/ops/resize_pallas.py:52"),
+            ("K5 ms_deform_attn_separable forward", "pctrans_torch/csrc/msdeform_separable.cu",
+             "pctrans_tpu/ops/msdeform_pallas.py:79")]
+    keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     kernels = [{"name": n, "route": "cuda", "source": s, "replaces": r,
-                "launches": k, **gate}
+                "launches": k, **{key: gate[key] for key in keys}}
                for (n, s, r), k, gate in zip(meta, launches, gates)]
     if "jax" in sys.modules:
         raise AssertionError("jax was imported")

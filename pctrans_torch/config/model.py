@@ -6,9 +6,9 @@ carried: the Swin backbone is not ported yet, and remat is a training-only
 choice of the JAX graph.
 
 ``CVPPP_RECIPE`` is the configuration that
-``configs/CVPPP/CVPPP-PCTrans{-Base,}.yaml`` build, as a plain constant, so
-the port runs where PyYAML is not installed.  ``build_model_config`` maps a
-loaded YACS-style config tree; the port has no YAML loader of its own yet.
+``configs/CVPPP/CVPPP-PCTrans{-Base,}.yaml`` build, as a plain constant.
+``build_model_config`` maps a config tree loaded by
+``pctrans_torch.config.load_cfg``.
 """
 
 from __future__ import annotations

@@ -38,25 +38,13 @@
 // d_value [B, S, M, D] f32 (zeroed by the caller), d_loc like loc, d_w
 // like w (f32, every element written).
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "msdeform_common.cuh"
+
+using namespace msdeform;
 
 namespace {
 
-constexpr int kMaxLevels = 8;
 constexpr int kThreads = 256;
-
-struct Levels {
-  int h[kMaxLevels];
-  int w[kMaxLevels];
-  int start[kMaxLevels];
-};
-
-__device__ __forceinline__ float load_f32(const float* p) { return __ldg(p); }
-__device__ __forceinline__ float load_f32(const __nv_bfloat16* p) {
-  return __bfloat162float(*p);
-}
 
 // sum over the aligned group of `width` lanes (a power of two <= 32);
 // `mask` names the lanes that exist in this warp
@@ -151,16 +139,8 @@ extern "C" int pctrans_msdeform_bwd(const void* value, const void* loc,
                                     int B, int S, int M, int D, int Lq, int L,
                                     int P, const int* shapes, int is_bf16,
                                     void* stream) {
-  if (L < 1 || L > kMaxLevels) return (int)cudaErrorInvalidValue;
   Levels lv;
-  int start = 0;
-  for (int l = 0; l < L; ++l) {
-    lv.h[l] = shapes[2 * l];
-    lv.w[l] = shapes[2 * l + 1];
-    lv.start[l] = start;
-    start += lv.h[l] * lv.w[l];
-  }
-  if (start != S) return (int)cudaErrorInvalidValue;
+  if (!make_levels(shapes, L, S, &lv)) return (int)cudaErrorInvalidValue;
   // D a power of two <= 32: a head's lanes form one aligned group of a warp
   if (D < 1 || D > 32 || (D & (D - 1)) || M * D > kThreads)
     return (int)cudaErrorInvalidValue;

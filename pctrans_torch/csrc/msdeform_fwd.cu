@@ -21,29 +21,13 @@
 // out [B, Lq, M*D] in the value dtype.  Pixel position = loc * size - 0.5,
 // corners outside the map contribute zero (grid_sample, zero padding).
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "msdeform_common.cuh"
+
+using namespace msdeform;
 
 namespace {
 
-constexpr int kMaxLevels = 8;
 constexpr int kThreads = 256;
-
-struct Levels {
-  int h[kMaxLevels];
-  int w[kMaxLevels];
-  int start[kMaxLevels];
-};
-
-__device__ __forceinline__ float load_f32(const float* p) { return __ldg(p); }
-__device__ __forceinline__ float load_f32(const __nv_bfloat16* p) {
-  return __bfloat162float(*p);
-}
-__device__ __forceinline__ void store_f32(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store_f32(__nv_bfloat16* p, float v) {
-  *p = __float2bfloat16(v);
-}
 
 // block: threadIdx.x = m * D + d over one query's heads and channels,
 // threadIdx.y = query within the block
@@ -105,16 +89,8 @@ extern "C" int pctrans_msdeform_fwd(const void* value, const void* loc,
                                     int M, int D, int Lq, int L, int P,
                                     const int* shapes, int is_bf16,
                                     void* stream) {
-  if (L < 1 || L > kMaxLevels) return (int)cudaErrorInvalidValue;
   Levels lv;
-  int start = 0;
-  for (int l = 0; l < L; ++l) {
-    lv.h[l] = shapes[2 * l];
-    lv.w[l] = shapes[2 * l + 1];
-    lv.start[l] = start;
-    start += lv.h[l] * lv.w[l];
-  }
-  if (start != S) return (int)cudaErrorInvalidValue;
+  if (!make_levels(shapes, L, S, &lv)) return (int)cudaErrorInvalidValue;
   if (M * D > kThreads) return (int)cudaErrorInvalidValue;
   const int64_t n_bq = (int64_t)B * Lq;
   if (n_bq == 0) return (int)cudaSuccess;

@@ -1,2 +1,2 @@
-"""Input data for the port: padded train targets (torch) and synthetic
-scenes (numpy)."""
+"""Input data for the port: padded train targets (torch), the CVPPP and
+synthetic datasets and the prefetching loader (numpy)."""

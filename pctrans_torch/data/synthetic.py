@@ -1,13 +1,14 @@
-"""Synthetic CVPPP-shaped scenes (numpy), for smoke runs without data.
+"""Synthetic CVPPP-shaped scenes (numpy), for runs without data.
 
-The same generator as ``pctrans_tpu/data/synthetic.py::make_blob_image``:
+The same generator and dataset as ``pctrans_tpu/data/synthetic.py``:
 coloured elliptical "leaves" on a dark background with consecutive-id
-instance labels.  A test holds the two bit-equal for the same seed.
+instance labels, deterministic per (seed, index).  Tests hold the two
+bit-equal.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Iterator, Optional, Tuple
 
 import numpy as np
 
@@ -56,3 +57,43 @@ def make_blob_image(
     remap = np.zeros(ids.max() + 1, np.int32)
     remap[ids] = np.arange(len(ids))
     return img, remap[label]
+
+
+class SyntheticDataset:
+    """Finite synthetic dataset with deterministic content per index."""
+
+    def __init__(self, size=(448, 448), length: int = 64, seed: int = 0,
+                 n_instances=(4, 12), cache: bool = True, radius_px=None):
+        self.size = tuple(size)
+        self.length = length
+        self.seed = seed
+        self.n_instances = n_instances
+        self.radius_px = radius_px
+        # content is fixed per index: memoize instead of regenerating each
+        # epoch
+        self._cache: Optional[dict] = {} if cache else None
+
+    def __len__(self):
+        return self.length
+
+    def __getitem__(self, idx: int):
+        if self._cache is not None and idx in self._cache:
+            return self._cache[idx]
+        rng = np.random.RandomState(self.seed * 100003 + idx)
+        img, label = make_blob_image(rng, self.size, self.n_instances,
+                                     radius_px=self.radius_px)
+        item = {"image": img, "label": label}
+        if self._cache is not None:
+            self._cache[idx] = item
+        return item
+
+
+def batch_iterator(dataset, batch_size: int, rng: np.random.RandomState,
+                   shuffle: bool = True) -> Iterator[dict]:
+    """Infinite batch iterator yielding stacked numpy dicts."""
+    n = len(dataset)
+    while True:
+        idx = rng.permutation(n) if shuffle else np.arange(n)
+        for s in range(0, n - batch_size + 1, batch_size):
+            items = [dataset[int(i)] for i in idx[s:s + batch_size]]
+            yield {k: np.stack([it[k] for it in items]) for k in items[0]}

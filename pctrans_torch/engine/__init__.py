@@ -1,2 +1,2 @@
-"""Train step and solver, eval step and CVPPP evaluator (mirror of
-``pctrans_tpu.engine``)."""
+"""Train step and solver, eval step and CVPPP evaluator, checkpoints and the
+Trainer (mirror of ``pctrans_tpu.engine``)."""

@@ -57,11 +57,13 @@ class Evaluator:
 
     def eval_cvppp(self, batches: Iterable[Dict[str, np.ndarray]]
                    ) -> Dict[str, float]:
-        """Mean SBD and |DiC| over batches {"image", "label"[, "fg"]}."""
+        """Mean SBD and |DiC| over batches {"image", "label"[, "fg"]}.  A
+        batch padded to full size (``_num_valid``, ``data/build.py``) is
+        scored on its valid rows only."""
         sbd_all, diff_all, n = 0.0, 0.0, 0
         for batch in batches:
             labels = self.predict_labels(batch["image"])
-            for b in range(labels.shape[0]):
+            for b in range(int(batch.get("_num_valid", labels.shape[0]))):
                 seg = labels[b].astype(np.uint16)
                 if "fg" in batch:
                     seg = seg * (batch["fg"][b] > 0).astype(np.uint16)

@@ -1,5 +1,6 @@
 """ResNet backbone with detectron2 stage naming (mirror of
-``pctrans_tpu/models/resnet.py:29-113``), NCHW.
+``pctrans_tpu/models/resnet.py:29-113``), NCHW, and the detectron2 R-50
+pickle reader (``convert_d2_r50_pickle``, ``:114-259``).
 
 Every convolution pads symmetrically by ``k // 2``, as the JAX side does
 explicitly, so odd input sizes give the same grids: 530x500 gives res2
@@ -8,8 +9,11 @@ explicitly, so odd input sizes give the same grids: 530x500 gives res2
 
 from __future__ import annotations
 
+import pickle
+import re
 from typing import Dict
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -71,3 +75,77 @@ class ResNet(nn.Module):
                 y = block(y)
             outputs[name] = y
         return outputs
+
+
+_C2_BRANCH = {"branch1": "shortcut", "branch2a": "conv1", "branch2b": "conv2",
+              "branch2c": "conv3"}
+_C2_KEY = re.compile(r"res(\d)_(\d+)_(branch1|branch2a|branch2b|branch2c)"
+                     r"_(w|b|bn_s|bn_b)$")
+
+
+def _caffe2_to_d2_names(weights):
+    """The detectron2 model-zoo ``R-50.pkl`` (Caffe2 names: ``conv1_w``,
+    ``res{2..5}_{i}_branch{1,2a,2b,2c}_{w,bn_s,bn_b}``, an ``fc1000`` head,
+    no running statistics) under detectron2's own names."""
+    out = {}
+    for k, v in weights.items():
+        if not hasattr(v, "shape") or k.startswith("fc1000"):
+            continue                                  # metadata, classifier
+        if k == "conv1_w":
+            out["stem.conv1.weight"] = v
+        elif k == "res_conv1_bn_s":
+            out["stem.conv1.norm.weight"] = v
+        elif k == "res_conv1_bn_b":
+            out["stem.conv1.norm.bias"] = v
+        else:
+            m = _C2_KEY.match(k)
+            if m is None:
+                raise KeyError(f"unrecognized Caffe2 R-50 key: {k!r}")
+            stage, block, branch, suffix = m.groups()
+            sfx = {"w": "weight", "b": "bias", "bn_s": "norm.weight",
+                   "bn_b": "norm.bias"}[suffix]
+            out[f"res{stage}.{block}.{_C2_BRANCH[branch]}.{sfx}"] = v
+    return out
+
+
+def convert_d2_r50_pickle(path: str, depth: int = 50,
+                          conv1_bgr_to_rgb: bool = True) -> Dict[str, torch.Tensor]:
+    """A detectron2 R-50 pickle (d2-native or Caffe2 model-zoo names) as the
+    ``state_dict`` of :class:`ResNet` with FrozenBN norms.
+
+    Missing running statistics default to mean 0 and var 1 - eps
+    (detectron2's FrozenBatchNorm2d buffers, so the folded scale is the
+    stored affine weight).  The Caffe2 weights expect BGR input; the loaders
+    feed RGB, so conv1's input channels are flipped unless
+    ``conv1_bgr_to_rgb=False`` (the reference's as-published behaviour).
+    """
+    with open(path, "rb") as f:
+        data = pickle.load(f, encoding="latin1")
+    weights = data.get("model", data)
+    if "conv1_w" in weights:
+        weights = _caffe2_to_d2_names(weights)
+        if conv1_bgr_to_rgb:
+            weights["stem.conv1.weight"] = np.ascontiguousarray(
+                np.asarray(weights["stem.conv1.weight"])[:, ::-1])
+
+    out: Dict[str, torch.Tensor] = {}
+
+    def put(src: str, dst: str):
+        t = lambda a: torch.from_numpy(np.array(a, dtype=np.float32))
+        scale = np.asarray(weights[f"{src}.norm.weight"])
+        out[f"{dst}.conv.weight"] = t(weights[f"{src}.weight"])
+        out[f"{dst}.norm.scale"] = t(scale)
+        out[f"{dst}.norm.bias"] = t(weights[f"{src}.norm.bias"])
+        out[f"{dst}.norm.mean"] = t(weights.get(f"{src}.norm.running_mean",
+                                                np.zeros_like(scale)))
+        out[f"{dst}.norm.var"] = t(weights.get(f"{src}.norm.running_var",
+                                               np.full_like(scale, 1.0 - 1e-5)))
+
+    put("stem.conv1", "stem")
+    for stage_idx, n_blocks in enumerate(BLOCKS_PER_STAGE[depth]):
+        for b in range(n_blocks):
+            name = f"res{stage_idx + 2}.{b}"
+            convs = ("shortcut",) if f"{name}.shortcut.weight" in weights else ()
+            for conv in convs + ("conv1", "conv2", "conv3"):
+                put(f"{name}.{conv}", f"{name}.{conv}")
+    return out

@@ -1,6 +1,7 @@
 """Build and load the port's CUDA kernels (``pctrans_torch/csrc/*.cu``).
 
-All kernels compile with one ``nvcc`` call into one shared library with a
+Each source compiles in its own ``nvcc`` process, all started together, and
+one more ``nvcc`` call links the objects into one shared library with a
 plain C interface, loaded with ``ctypes``.  The build runs at first use,
 never at import, into ``build/pctrans_torch_kernels/`` at the repository
 root; the library's name carries a hash of the sources and flags, so an
@@ -28,7 +29,7 @@ CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "pctrans_torch_kernels"
 DEFAULT_CUDA_HOME = "/usr/local/cuda"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -37,6 +38,9 @@ _SIGNATURES = {
     # is_bf16, stream
     "pctrans_msdeform_fwd": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P,
                              _I, _P],
+    # K5, the separable form: K1's arguments
+    "pctrans_msdeform_sep_fwd": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                                 _P, _I, _P],
     # value, loc, weights, grad, d_value, d_loc, d_weights, B, S, M, D, Lq,
     # L, P, shapes (host int[2L]), is_bf16, stream
     "pctrans_msdeform_bwd": [_P] * 7 + [_I] * 7 + [_P, _I, _P],
@@ -78,15 +82,33 @@ def build(so: Path) -> None:
             "pctrans_torch kernels: nvcc not found (PATH, $CUDA_HOME, "
             "/usr/local/cuda); the CUDA kernels cannot be built")
     so.parent.mkdir(parents=True, exist_ok=True)
-    tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
-    cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), *map(str, _sources())]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    so.with_suffix(".log").write_text(proc.stdout + proc.stderr)
-    if proc.returncode != 0:
+    tag = f"{so.name}.{os.getpid()}"
+    tmp = so.with_name(f"{tag}.tmp")
+    sources = _sources()
+    objs = [so.with_name(f"{tag}.{src.stem}.o") for src in sources]
+    procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                              text=True)
+             for src, obj in zip(sources, objs)]
+    outputs = [p.communicate() for p in procs]     # all compiles run at once
+    results = [(p.returncode, out, err) for p, (out, err) in zip(procs, outputs)]
+    log = "".join(f"== {src.name}\n{out}{err}" for src, (_, out, err)
+                  in zip(sources, results))
+    failed = [(rc, err) for rc, _, err in results if rc != 0]
+    if not failed:
+        link = subprocess.run([nvcc, "-shared", "-o", str(tmp), *map(str, objs)],
+                              capture_output=True, text=True)
+        log += f"== link\n{link.stdout}{link.stderr}"
+        if link.returncode != 0:
+            failed = [(link.returncode, link.stderr)]
+    so.with_suffix(".log").write_text(log)
+    for obj in objs:
+        obj.unlink(missing_ok=True)
+    if failed:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(
-            f"pctrans_torch kernels: nvcc failed ({proc.returncode}):\n"
-            f"{proc.stderr[-4000:]}")
+        rc, err = failed[0]
+        raise RuntimeError(f"pctrans_torch kernels: nvcc failed ({rc}):\n"
+                           f"{err[-4000:]}")
     os.replace(tmp, so)  # atomic: a concurrent build never sees a partial .so
 
 
@@ -147,3 +169,29 @@ def check(lib: ctypes.CDLL, rc: int, op: str) -> None:
     if rc != 0:
         msg = lib.pctrans_cuda_error_string(rc).decode()
         raise RuntimeError(f"{op}: CUDA error {rc} at launch: {msg}")
+
+
+def compare_build_times() -> None:
+    """Time :func:`build` from nothing beside one ``nvcc`` call that
+    compiles and links every source in turn, twice each (parallel, single,
+    single, parallel), into a temporary directory."""
+    import tempfile
+    import time
+
+    BUILD_DIR.parent.mkdir(parents=True, exist_ok=True)
+    sources = [str(s) for s in _sources()]
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR.parent) as tmp:
+        for i, form in enumerate(("parallel", "single", "single", "parallel")):
+            so = Path(tmp) / f"{form}{i}.so"
+            t0 = time.perf_counter()
+            if form == "parallel":
+                build(so)
+            else:
+                subprocess.run([find_nvcc(), *NVCC_FLAGS, "-shared", "-o", str(so),
+                                *sources], check=True, capture_output=True)
+            print(f"{form:8s} build of {len(sources)} sources: "
+                  f"{time.perf_counter() - t0:.3f} s", flush=True)
+
+
+if __name__ == "__main__":
+    compare_build_times()       # python -m pctrans_torch.ops._build

@@ -1,6 +1,6 @@
-"""Import hygiene and dispatch rules of the PyTorch port: no JAX, Triton or
-YAML at import, kernels built only on request with no fallback, and no
-silent route from a kernel request to the twin."""
+"""Import hygiene and dispatch rules of the PyTorch port: no JAX, Triton,
+YAML or image libraries at import, kernels built only on request with no
+fallback, and no silent route from a kernel request to the twin."""
 
 import ast
 import os
@@ -19,7 +19,10 @@ from pctrans_torch.ops.resize_binarize import resize_bilinear_binarize
 torch.set_num_threads(1)
 
 REPO = Path(__file__).resolve().parents[1]
-FORBIDDEN = ("jax", "flax", "optax", "orbax", "triton", "yaml")
+FORBIDDEN = ("jax", "flax", "optax", "orbax", "triton", "yaml", "h5py")
+# the CVPPP reader imports these at its first read, never at import
+LAZY = ("PIL", "cv2")
+SCRIPTS = [REPO / "scripts" / "main_torch.py", REPO / "scripts" / "eval_torch.py"]
 
 _IMPORT_ALL = f"""
 import importlib, pkgutil, sys
@@ -28,26 +31,30 @@ before = set(sys.modules)
 import pctrans_torch
 for m in pkgutil.walk_packages(pctrans_torch.__path__, "pctrans_torch."):
     importlib.import_module(m.name)
+sys.path.insert(0, {str(REPO / "scripts")!r})
+import main_torch, eval_torch
 added = set(sys.modules) - before
 print(sum(m.startswith("pctrans_torch") for m in added),
-      *sorted(m for m in added if m.split(".")[0] in {FORBIDDEN!r}))
+      *sorted(m for m in added if m.split(".")[0] in {FORBIDDEN + LAZY!r}))
 """
 
 
-def test_importing_every_module_loads_no_jax_triton_or_yaml():
+def test_importing_every_module_loads_no_jax_triton_yaml_or_image_library():
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     out = subprocess.run([sys.executable, "-c", _IMPORT_ALL], cwd=REPO, env=env,
                          capture_output=True, text=True, timeout=300, check=True)
     count, *forbidden = out.stdout.split()
     assert forbidden == []
-    assert int(count) >= 30
+    assert int(count) >= 40
 
 
 def test_port_and_smoke_import_nothing_of_the_jax_package():
-    """Neither chip_smoke.py nor any port module names JAX, Triton, YAML or
-    the JAX package ``pctrans_tpu`` in an import, at module level or
-    inside a function (the card's machine has no JAX)."""
-    files = [REPO / "chip_smoke.py", *sorted((REPO / "pctrans_torch").rglob("*.py"))]
+    """Neither chip_smoke.py, the port's two scripts nor any port module
+    names JAX, Triton, YAML, h5py or the JAX package ``pctrans_tpu`` in an
+    import, at module level or inside a function (the card's machine has no
+    JAX and no PyYAML)."""
+    files = [REPO / "chip_smoke.py", *SCRIPTS,
+             *sorted((REPO / "pctrans_torch").rglob("*.py"))]
     banned = set(FORBIDDEN) | {"pctrans_tpu"}
     found = []
     for f in files:
@@ -59,7 +66,7 @@ def test_port_and_smoke_import_nothing_of_the_jax_package():
             else:
                 continue
             found += [(f.name, n) for n in names if n.split(".")[0] in banned]
-    assert len(files) >= 33 and found == []
+    assert len(files) >= 46 and found == []
 
 
 def test_chip_smoke_without_cuda_fails_and_prints_no_result():

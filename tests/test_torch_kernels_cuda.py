@@ -14,7 +14,9 @@ import pytest
 import torch
 
 from pctrans_torch.ops import msdeform
-from pctrans_torch.ops.msdeform import ms_deform_attn, ms_deform_attn_backward
+from pctrans_torch.ops.msdeform import (ms_deform_attn, ms_deform_attn_backward,
+                                        ms_deform_attn_separable,
+                                        ms_deform_attn_separable_twin)
 from pctrans_torch.ops.render import dynamic_mask_render
 from pctrans_torch.ops.resize import resize_bilinear
 from pctrans_torch.ops.resize_binarize import resize_bilinear_binarize
@@ -174,3 +176,70 @@ def test_msdeform_backward_kernel_matches_twin_autograd(dev, M, D, Lq, shapes,
     for name, a, b in zip(("value", "locations", "weights"), ours, ref):
         assert a.dtype == b.dtype and a.shape == b.shape, name
         assert _rel(a, b) <= tol, name
+
+
+@pytest.mark.parametrize("M,D,Lq,shapes", [
+    (8, 16, 37, [(5, 7), (3, 4), (9, 2)]),
+    (4, 8, 1, [(6, 5)]),
+    (2, 32, 300, [(11, 13), (6, 7)]),
+    (3, 4, 129, [(40, 70), (2, 3)]),         # several staging passes per level
+])
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.bfloat16, 1e-2)])
+def test_separable_kernel_matches_both_twins(dev, M, D, Lq, shapes, dtype, tol):
+    """K5 against its separable twin and the 4-corner twin, with samples
+    outside the map and Lq not a multiple of the block's 128 queries."""
+    g = torch.Generator(device=dev).manual_seed(4)
+    B, L, P = 2, len(shapes), 3
+    S = sum(h * w for h, w in shapes)
+    value = torch.randn(B, S, M, D, device=dev, generator=g).to(dtype)
+    loc = torch.rand(B, Lq, M, L, P, 2, device=dev, generator=g) * 1.4 - 0.2
+    w = torch.rand(B, Lq, M, L, P, device=dev, generator=g)
+    before = (ms_deform_attn.launches, ms_deform_attn_separable.launches)
+    out = ms_deform_attn(value, shapes, loc, w, impl="pallas")
+    torch.cuda.synchronize()
+    assert (ms_deform_attn.launches, ms_deform_attn_separable.launches) == \
+        (before[0], before[1] + 1)
+    assert out.dtype == dtype and out.shape == (B, Lq, M * D)
+    assert _rel(out, ms_deform_attn_separable_twin(value, shapes, loc, w)) <= tol
+    assert _rel(out, ms_deform_attn(value, shapes, loc, w, impl="twin")) <= tol
+
+
+@pytest.mark.parametrize("on_grid", [False, True])
+def test_separable_function_backward_is_k2(dev, on_grid):
+    """Under autograd the pallas path runs K5 forward and K2 backward; its
+    gradients equal the 4-corner twin's autograd (integral samples included:
+    both take the hat derivative 0 there)."""
+    g = torch.Generator(device=dev).manual_seed(5)
+    shapes = [(5, 7), (3, 4)]
+    B, M, D, Lq, L, P = 2, 8, 16, 70, 2, 4
+    S = sum(h * w for h, w in shapes)
+    value = torch.randn(B, S, M, D, device=dev, generator=g)
+    loc = torch.rand(B, Lq, M, L, P, 2, device=dev, generator=g) * 1.4 - 0.2
+    if on_grid:
+        loc = _on_grid(loc, shapes, 0.5, g)
+    w = torch.rand(B, Lq, M, L, P, device=dev, generator=g)
+    gout = torch.randn(B, Lq, M * D, device=dev, generator=g)
+
+    def grads(impl):
+        prim = [t.clone().requires_grad_() for t in (value, loc, w)]
+        ms_deform_attn(prim[0], shapes, prim[1], prim[2], impl=impl).backward(gout)
+        return [p.grad for p in prim]
+
+    before = (ms_deform_attn_separable.launches, ms_deform_attn_backward.launches)
+    ours = grads("pallas")
+    torch.cuda.synchronize()
+    assert (ms_deform_attn_separable.launches, ms_deform_attn_backward.launches) == \
+        (before[0] + 1, before[1] + 1)
+    for name, a, b in zip(("value", "locations", "weights"), ours, grads("twin")):
+        assert _rel(a, b) <= 1e-5, name
+
+
+def test_separable_kernel_refuses_what_it_cannot_stage(dev):
+    loc = torch.rand(1, 5, 2, 1, 2, 2, device=dev)
+    w = torch.rand(1, 5, 2, 1, 2, device=dev)
+    with pytest.raises(ValueError, match="D must be"):
+        ms_deform_attn_separable(torch.randn(1, 6, 2, 6, device=dev), [(2, 3)], loc, w)
+    with pytest.raises(ValueError, match="8192"):
+        ms_deform_attn_separable(torch.randn(1, 2 * 600, 2, 16, device=dev),
+                                 [(2, 600)], loc, w)
