@@ -10,11 +10,10 @@ Phases:
   3. kernel gates: K1 (ms-deform forward) and K5 (its separable form) at
      the eval shapes, K5 also against K1 and at the entry-point run's train
      and validation shapes (448x448 levels, batch 2 and 4), K2 (ms-deform
-     backward) at the
-     train shapes with a share of samples on integral pixel coordinates,
-     K3 (mask render) and K4 (upsample+binarize) against their plain
-     PyTorch twins on the card, then each one's time beside its twin's (K2
-     timed as K1+K2 forward+backward against the twin's, K5 beside K1);
+     backward) at the train shapes with a share of samples on integral
+     pixel coordinates, K3 (mask render) and K4 (upsample+binarize) against
+     their plain PyTorch twins on the card, then each one's time beside its
+     twin's (K2 alone, and K1 also at the train shapes; K5 beside K1);
   4. the f32 forward of the full-width CVPPP recipe (seeded random weights)
      through the kernels and through the twins, on one batch of four
      synthetic 530x500 scenes;
@@ -22,7 +21,8 @@ Phases:
      two synthetic 448x448 scenes: the pixel decoder's gradients of
      loss_emb + loss_sem through K1/K2 against the twin's;
   6. the bf16 recipe as served: the evaluator over three batches of four
-     scenes, with launch counters showing the kernels ran;
+     scenes, with launch counters showing the kernels ran, then K1 timed
+     on the value, locations and weights one bf16 forward gives it;
   7. the bf16 recipe as trained: ``make_train_step`` with AdamW and
      WarmupPolyLR, one warm-up step then 5 counted steps on batches of two
      448x448 scenes, with launch counters (K1 = K2 = 6 per step, K3 = 0);
@@ -66,10 +66,11 @@ N_TRAIN_STEPS = 5              # counted, after one warm-up step
 SEED = 0                       # of the weights, the scenes and the gates' inputs
 REPO = Path(__file__).resolve().parent
 ENTRY_ITERS = 4                # iterations of the entry-point run
-# H100 SXM peaks (NVIDIA data sheet) for the bounds: HBM bytes per second and
-# f32 FLOP/s outside the tensor cores (every kernel here computes in f32)
+# H100 SXM peaks (NVIDIA data sheet) for the bounds: HBM bytes per second,
+# f32 FLOP/s outside the tensor cores, dense TF32 FLOP/s on the tensor cores
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOP_PER_S = 67e12
+PEAK_TF32_FLOP_PER_S = 495e12
 
 
 def card_line() -> str:
@@ -103,19 +104,38 @@ def time_ms(fn, warmup: int = 3, reps: int = 20, trials: int = 5) -> float:
     return statistics.median(per_call)
 
 
-def device_ms(fn, reps: int = 10) -> float:
+def device_ms(fn, reps: int = 10, kernel: str = "") -> float:
     """Device time per call of ``fn()``: the kernels' own time summed by
-    ``torch.profiler``, host overhead excluded."""
+    ``torch.profiler``, host overhead excluded; with ``kernel``, only the
+    kernels whose name contains it.  A trace can lose events (one in a
+    trace of ten calls is common), so each kernel's time is its mean over
+    the events the trace kept times its launches per call, round(events /
+    reps); a trace that lost more than one event or a tenth of a kernel's
+    events is taken again."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    total_us = sum(e.self_device_time_total for e in prof.key_averages())
-    return total_us / reps / 1e3
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        events = [e for e in prof.key_averages()
+                  if kernel in e.key and e.self_device_time_total > 0]
+        per_call = [max(1, round(e.count / reps)) for e in events]
+        lost = [n * reps - e.count for n, e in zip(per_call, events)]
+        expected = sum(per_call) * reps
+        if events and all(0 <= k <= max(1, n * reps // 10)
+                          for n, k in zip(per_call, lost)):
+            if sum(lost):
+                print(f"device_ms: the trace lost {sum(lost)} of {expected} device "
+                      "events; each kernel's time is its mean over those kept")
+            return sum(e.self_device_time_total / e.count * n
+                       for n, e in zip(per_call, events)) / 1e3
+        print(f"device_ms: the trace holds {sum(e.count for e in events)} device "
+              f"events against {expected} expected; tracing again")
+    raise AssertionError(f"the profiler lost device events of {kernel or 'the call'}")
 
 
 def timed(name: str, kernel, twin) -> dict:
@@ -130,23 +150,26 @@ def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
-def bound(name: str, n_bytes: float, flops: float, dev_ms: float) -> dict:
+def bound(name: str, n_bytes: float, flops: float, dev_ms: float,
+          flop_rate: float = PEAK_F32_FLOP_PER_S, unit: str = "f32") -> dict:
     """The least time the card could take: the larger of the bytes moved
     (each input read once, each output written once) over HBM's rate and
-    the f32 operations over the CUDA cores' rate."""
+    the operations over the rate of the unit that runs them (by default
+    f32 on the CUDA cores)."""
     t_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = flops / PEAK_F32_FLOP_PER_S * 1e3
+    t_ops = flops / flop_rate * 1e3
     by = "bytes" if t_bytes >= t_ops else "operations"
     ms = max(t_bytes, t_ops)
     print(f"{name} bound: {n_bytes / 1e6:.1f} MB -> {t_bytes * 1e3:.2f} us, "
-          f"{flops / 1e9:.3f} GFLOP -> {t_ops * 1e3:.2f} us; bound {ms * 1e3:.2f} us "
-          f"by {by}, {ms / dev_ms:.1%} of the kernel's {dev_ms:.4f} ms device time")
+          f"{flops / 1e9:.3f} GFLOP {unit} at {flop_rate / 1e12:.0f} TFLOP/s -> "
+          f"{t_ops * 1e3:.2f} us; bound {ms * 1e3:.2f} us by {by}, {ms / dev_ms:.1%} "
+          f"of the kernel's {dev_ms:.4f} ms device time")
     return {"bound_ms": ms, "bound_by": by}
 
 
 def msdeform_samples_inside(shapes, loc) -> int:
-    """Samples with a corner inside their level's map: the kernels skip the
-    others, so only these cost operations."""
+    """Samples with a corner inside their level's map: an outside sample
+    adds zero, so only these need operations."""
     n = 0
     for lid, (H, W) in enumerate(shapes):
         x = loc[:, :, :, lid, :, 0] * W - 0.5
@@ -180,14 +203,19 @@ def msdeform_inputs(dev, g, batch=BATCH, shapes=EVAL_SHAPES):
     return value, shapes, loc, w.reshape(batch, S, M, L, P)
 
 
-def msdeform_bound(name, value, shapes, loc, w, dev_ms) -> dict:
-    """Bound of one forward call (K1 or K5: the same work) on these inputs:
-    per sample inside the map, 4 corners x D channels of multiply-add plus
-    the weighted sum, ~10 FLOP per channel."""
+def msdeform_work(value, shapes, loc, w):
+    """(bytes, FLOP) of one forward call (K1 or K5: the same work) on these
+    inputs: each input read once and the output written once; per sample
+    inside the map, 4 corners x D channels of multiply-add plus the weighted
+    sum, ~10 FLOP per channel."""
     B, Lq, M, D = value.shape[0], loc.shape[1], value.shape[2], value.shape[3]
     out_bytes = B * Lq * M * D * value.element_size()
     flops = msdeform_samples_inside(shapes, loc) * (10 * D + 10)
-    return bound(name, nbytes(value, loc, w) + out_bytes, flops, dev_ms)
+    return nbytes(value, loc, w) + out_bytes, flops
+
+
+def msdeform_bound(name, value, shapes, loc, w, dev_ms) -> dict:
+    return bound(name, *msdeform_work(value, shapes, loc, w), dev_ms)
 
 
 def gate_msdeform(dev, inputs):
@@ -212,6 +240,32 @@ def gate_msdeform(dev, inputs):
     return {"max_abs_err": float((out - twin).abs().max()), **times,
             **msdeform_bound("K1", vb, shapes, loc, w, times["device_ms"]),
             "library_ms": None}
+
+
+def time_k1_on_model_inputs(calls) -> dict:
+    """K1 on the (value, shapes, locations, weights) of ``calls``, the six
+    encoder layers of one bf16 eval forward: ms per launch (call and
+    device) beside the twin's, and the bound on those inputs."""
+    from pctrans_torch.ops.msdeform import ms_deform_attn
+
+    n = len(calls)
+    errs = [rel_fro(ms_deform_attn(*c).float(), ms_deform_attn(*c, impl="twin").float())
+            for c in calls]
+    print(f"K1 on the inputs of the bf16 eval forward's {n} encoder layers (value "
+          f"{calls[0][0].dtype}, locations {calls[0][2].dtype}): rel-Fro to the twin "
+          + " ".join(f"{e:.2e}" for e in errs) + " (<= 1e-2)")
+    if not max(errs) <= 1e-2:
+        raise AssertionError("K1 disagrees with its twin on the model's inputs")
+    ms = time_ms(lambda: [ms_deform_attn(*c) for c in calls]) / n
+    plain = time_ms(lambda: [ms_deform_attn(*c, impl="twin") for c in calls]) / n
+    dev_ms = device_ms(lambda: [ms_deform_attn(*c) for c in calls]) / n
+    print(f"K1 on the model's inputs, per launch: kernel {ms:.4f} ms/call "
+          f"({dev_ms:.4f} ms device), twin {plain:.4f} ms/call")
+    work = [msdeform_work(*c) for c in calls]
+    rec = bound("K1 on the model's inputs, per launch", sum(b for b, _ in work) / n,
+                sum(f for _, f in work) / n, dev_ms)
+    return {"model_ms": ms, "model_device_ms": dev_ms, "model_plain_ms": plain,
+            "model_bound_ms": rec["bound_ms"]}
 
 
 def check_separable(inputs) -> float:
@@ -264,8 +318,10 @@ def gate_separable(dev, g, inputs, k1):
 def gate_msdeform_backward(dev, g):
     """K2 through the autograd Function against the twin's autograd at the
     train shapes; a quarter of the samples sit on integral pixel
-    coordinates, where both take the hat derivative 0."""
-    from pctrans_torch.ops.msdeform import ms_deform_attn
+    coordinates, where both take the hat derivative 0.  Then K2 alone and
+    K1 alone at those shapes, each beside its twin, and the two together
+    under autograd.  Returns K2's record and K1's train-shape times."""
+    from pctrans_torch.ops.msdeform import ms_deform_attn, ms_deform_attn_backward
 
     shapes = TRAIN_SHAPES
     S = sum(h * w for h, w in shapes)
@@ -302,29 +358,45 @@ def gate_msdeform_backward(dev, g):
     if not (max(errs["f32"]) <= 1e-5 and max(errs["bf16"]) <= 1e-2):
         raise AssertionError("K2 disagrees with the twin's autograd")
 
-    vb = value.bfloat16().requires_grad_()
+    vb, gb = value.bfloat16(), gout.bfloat16()
+    inside = msdeform_samples_inside(shapes, loc)
+    # K2 alone: its wrapper (the zeroed f32 d_value, the kernel, the casts
+    # of the results) beside the twin's autograd
+    k2 = timed("K2 ms_deform_attn_backward alone, bf16 value",
+               lambda: ms_deform_attn_backward(vb, shapes, loc, w, gb),
+               lambda: ms_deform_attn_backward(vb, shapes, loc, w, gb, impl="twin"))
+    k2_kernel = device_ms(lambda: ms_deform_attn_backward(vb, shapes, loc, w, gb),
+                          kernel="msdeform_bwd_kernel")
+    print(f"K2 msdeform_bwd_kernel alone: {k2_kernel:.4f} ms device")
+    # value, loc, w, grad_out read once; f32 d_value, d_loc, d_w written
+    # once; ~34 FLOP per inside sample and channel (the sample, the dot, two
+    # location terms, four d_value terms)
+    n_bytes = nbytes(vb, loc, w, gb) + 4 * (value.numel() + loc.numel() + w.numel())
+    k2_rec = {"max_abs_err": worst, **k2, "kernel_device_ms": k2_kernel,
+              **bound("K2", n_bytes, inside * 34 * D, k2["device_ms"]),
+              "library_ms": None}
+    k1 = timed("K1 ms_deform_attn alone at the train shapes, bf16 value",
+               lambda: ms_deform_attn(vb, shapes, loc, w),
+               lambda: ms_deform_attn(vb, shapes, loc, w, impl="twin"))
+    k1_bound = msdeform_bound("K1 at the train shapes", vb, shapes, loc, w,
+                              k1["device_ms"])
+
+    vg = vb.clone().requires_grad_()
     lr, wr = loc.clone().requires_grad_(), w.clone().requires_grad_()
-    gb = gout.bfloat16()
 
     def fwd_bwd(impl):
-        vb.grad = lr.grad = wr.grad = None
-        ms_deform_attn(vb, shapes, lr, wr, impl=impl).backward(gb)
+        vg.grad = lr.grad = wr.grad = None
+        ms_deform_attn(vg, shapes, lr, wr, impl=impl).backward(gb)
 
-    times = timed("K1+K2 forward+backward, bf16 value", lambda: fwd_bwd(None),
-                  lambda: fwd_bwd("twin"))
-    # the timed work: forward and backward; inputs value, loc, w, grad_out
-    # read once, out, d_value, d_loc, d_w written once; ~44 FLOP per inside
-    # sample and channel (forward 10, backward's sample, dot, two location
-    # terms and four d_value terms)
-    n_bytes = 2 * nbytes(vb, gb, lr, wr)
-    flops = msdeform_samples_inside(shapes, loc) * 44 * D
-    return {"max_abs_err": worst, **times,
-            **bound("K1+K2", n_bytes, flops, times["device_ms"]), "library_ms": None}
+    timed("K1+K2 forward+backward under autograd, bf16 value", lambda: fwd_bwd(None),
+          lambda: fwd_bwd("twin"))
+    return k2_rec, {"train_ms": k1["ms"], "train_device_ms": k1["device_ms"],
+                    "train_plain_ms": k1["plain_ms"],
+                    "train_bound_ms": k1_bound["bound_ms"]}
 
 
-def gate_render(dev, g):
-    from pctrans_torch.ops.render import dynamic_mask_render
-
+def render_inputs(dev, g):
+    """K3's arguments at the CVPPP eval shape (B=4, Q=100, 133x125, Cm=16)."""
     Q, Hm, Wm, Cm, ch = 100, 133, 125, 16, 8
     feats = torch.randn(BATCH, Hm * Wm, Cm, device=dev, generator=g)
     inst_xy = torch.rand(BATCH, Q, 2, device=dev, generator=g) * \
@@ -335,7 +407,15 @@ def gate_render(dev, g):
     w3 = torch.randn(BATCH, Q, 1, ch, device=dev, generator=g) * 0.3
     b1, b2 = (torch.randn(BATCH, Q, ch, device=dev, generator=g) for _ in range(2))
     b3 = torch.randn(BATCH, Q, 1, device=dev, generator=g)
-    args = (feats, inst_xy, w1, w2, w3, b1, b2, b3, (Hm, Wm), 4, True)
+    return (feats, inst_xy, w1, w2, w3, b1, b2, b3, (Hm, Wm), 4, True)
+
+
+def gate_render(dev, g):
+    from pctrans_torch.ops.render import dynamic_mask_render
+
+    args = render_inputs(dev, g)
+    feats, inst_xy, w1, w2, w3, b1, b2, b3, (Hm, Wm) = args[:9]
+    Q, ch, Cm = w1.shape[1], w1.shape[2], feats.shape[2]
     out = dynamic_mask_render(*args)
     torch.cuda.synchronize()
     twin = dynamic_mask_render(*args, impl="twin")
@@ -346,11 +426,16 @@ def gate_render(dev, g):
         raise AssertionError("K3 disagrees with its twin")
     times = timed("K3", lambda: dynamic_mask_render(*args),
                   lambda: dynamic_mask_render(*args, impl="twin"))
-    # three 1x1 layers per (query, pixel): ch*(Cm+2) + ch*ch + ch FMAs
+    # three 1x1 layers per (query, pixel): ch*(Cm+2) + ch*ch + ch FMAs.
+    # f32-accurate on the tensor cores costs 3 TF32 products each (3xTF32);
+    # on the CUDA cores, one f32 FMA each
     flops = 2 * BATCH * Q * Hm * Wm * (ch * (Cm + 2) + ch * ch + ch)
     n_bytes = nbytes(feats, inst_xy, w1, w2, w3, b1, b2, b3, out)
+    f32 = bound("K3 (f32, CUDA cores)", n_bytes, flops, times["device_ms"])
     return {"max_abs_err": float((out - twin).abs().max()), **times,
-            **bound("K3", n_bytes, flops, times["device_ms"]), "library_ms": None}
+            **bound("K3 (3xTF32, tensor cores)", n_bytes, 3 * flops, times["device_ms"],
+                    PEAK_TF32_FLOP_PER_S, "TF32"),
+            "bound_ms_f32_cuda_cores": f32["bound_ms"], "library_ms": None}
 
 
 def gate_resize_binarize(dev, g):
@@ -453,6 +538,7 @@ def slice_f32(dev):
 
 
 def slice_bf16(dev, card):
+    import pctrans_torch.models.pixel_decoder as pixel_decoder
     from pctrans_torch.config import CVPPP_RECIPE
     from pctrans_torch.engine.evaluator import Evaluator
     from pctrans_torch.ops.msdeform import ms_deform_attn
@@ -493,8 +579,18 @@ def slice_bf16(dev, card):
     print("instances per image of batch 0: "
           + " ".join(str(int(l.max())) for l in labels))
     x = torch.from_numpy(batches[0]["image"]).to(dev)
+    k1_calls = []
+
+    def keep_k1_inputs(value, shapes, loc, w, impl=None):
+        k1_calls.append((value, tuple(shapes), loc, w))
+        return ms_deform_attn(value, shapes, loc, w, impl=impl)
+
     with torch.inference_mode():
+        pixel_decoder.ms_deform_attn = keep_k1_inputs
         out = model(x)
+        pixel_decoder.ms_deform_attn = ms_deform_attn
+        if len(k1_calls) != c.enc_layers:
+            raise AssertionError(f"{len(k1_calls)} ms-deform calls in one forward")
         for k in ("pred_masks", "reference_points", "query_emb", "sem_mask",
                   "mask_features"):
             if not torch.isfinite(out[k].float()).all():
@@ -504,12 +600,13 @@ def slice_bf16(dev, card):
             raise AssertionError(f"pred_masks shape {tuple(out['pred_masks'].shape)}")
         fwd_ms = time_ms(lambda: model(x), warmup=2, reps=5)
         fwd_dev = device_ms(lambda: model(x), reps=5)
+        k1_model = time_k1_on_model_inputs(k1_calls)
     print(f"bf16 forward {fwd_ms:.3f} ms/batch of {BATCH} (CUDA events), "
           f"{fwd_dev:.3f} ms of it device time ({1 - fwd_dev / fwd_ms:.1%} "
           f"idle); end to end {N_EVAL_BATCHES * BATCH / wall:.3f} img/s "
           f"({wall:.3f} s wall for {N_EVAL_BATCHES * BATCH} images, host "
           f"postprocess included) on {card}")
-    return launches
+    return launches, k1_model
 
 
 def train_f32_backward(dev):
@@ -748,11 +845,14 @@ def main() -> int:
     k1_gate = gate_msdeform(dev, eval_inputs)
     k5_gate = gate_separable(dev, g, eval_inputs, k1_gate)
     del eval_inputs
-    gates = [k1_gate, gate_msdeform_backward(dev, g), gate_render(dev, g),
-             gate_resize_binarize(dev, g), k5_gate]
+    k2_gate, k1_train = gate_msdeform_backward(dev, g)
+    k1_gate.update(k1_train)
+    gates = [k1_gate, k2_gate, gate_render(dev, g), gate_resize_binarize(dev, g),
+             k5_gate]
     slice_f32(dev)
     train_f32_backward(dev)
-    k1_eval, k3, k4 = slice_bf16(dev, card)
+    (k1_eval, k3, k4), k1_model = slice_bf16(dev, card)
+    k1_gate.update(k1_model)
     k1, k2, _ = train_bf16(dev, card)
     k5 = entry_points(card)
     print(f"main paths: train K1 {k1}, K2 {k2}; eval K1 {k1_eval}, K3 {k3}, "
@@ -763,7 +863,7 @@ def main() -> int:
 
     meta = [("K1 ms_deform_attn forward", "pctrans_torch/csrc/msdeform_fwd.cu",
              "pctrans_tpu/ops/msdeform_pallas2.py:73"),
-            ("K2 ms_deform_attn backward (timed as K1+K2 forward+backward)",
+            ("K2 ms_deform_attn backward (timed alone, its wrapper)",
              "pctrans_torch/csrc/msdeform_bwd.cu",
              "pctrans_tpu/ops/msdeform_pallas2.py:118"),
             ("K3 dynamic_mask_render", "pctrans_torch/csrc/render.cu",
@@ -773,9 +873,11 @@ def main() -> int:
              "pctrans_tpu/ops/resize_pallas.py:52"),
             ("K5 ms_deform_attn_separable forward", "pctrans_torch/csrc/msdeform_separable.cu",
              "pctrans_tpu/ops/msdeform_pallas.py:79")]
-    keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    keys = ("max_abs_err", "ms", "plain_ms", "device_ms", "bound_ms", "bound_by",
+            "library_ms")
     kernels = [{"name": n, "route": "cuda", "source": s, "replaces": r,
-                "launches": k, **{key: gate[key] for key in keys}}
+                "launches": k, **{key: gate[key] for key in keys},
+                **{key: v for key, v in gate.items() if key not in keys}}
                for (n, s, r), k, gate in zip(meta, launches, gates)]
     if "jax" in sys.modules:
         raise AssertionError("jax was imported")

@@ -2,8 +2,9 @@
 //
 // Replaces the TPU kernel pctrans_tpu/ops/msdeform_pallas2.py:_level_bwd_kernel
 // (per (batch*head) slab, hat matrices on the MXU, d_value accumulated in
-// VMEM).  On Hopper it mirrors K1's thread map (msdeform_fwd.cu): a block
-// holds whole queries, threadIdx.x = head * D + d, threadIdx.y = query.  For
+// VMEM).  On Hopper one thread per (b, q, head, channel), the first K1's
+// thread map: a block holds whole queries, threadIdx.x = head * D + d,
+// threadIdx.y = query.  For
 // every (level, point) a thread reads its channel at the four corners and
 //   - forms g_d * sample_d (-> d_weights) and the x / y location terms,
 //     reduced over the head's D channels with __shfl_xor_sync inside the

@@ -238,9 +238,10 @@ class MultiScaleMaskedTransformerDecoder(nn.Module):
         feats = mask_feat.flatten(2).transpose(1, 2)          # [B, HW, Cm]
         args = (feats, inst_xy, w1, w2, w3, b1, b2, b3, (Hm, Wm), stride,
                 self.rel_coord)
-        # train mode renders with the einsum twin under autograd, as the JAX
-        # train graph does (transformer_decoder.py:398-400); eval takes K3
-        mask_logits = (render_twin(*args) if self.training else
+        # train mode renders with the einsum twin under autograd in the
+        # compute dtype, as the JAX train graph does (transformer_decoder.py:
+        # 398-400, 436-443); eval takes K3, which computes in f32
+        mask_logits = (render_twin(*args, dtype=dtype) if self.training else
                        dynamic_mask_render(*args, impl=impl))
         mask_logits = mask_logits.reshape(B, Q, Hm, Wm).to(dtype)
 

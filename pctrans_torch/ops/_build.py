@@ -33,6 +33,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_RESTYPES = {"pctrans_render_records_floats": ctypes.c_longlong}
 _SIGNATURES = {
     # value, loc, weights, out, B, S, M, D, Lq, L, P, shapes (host int[2L]),
     # is_bf16, stream
@@ -44,9 +45,11 @@ _SIGNATURES = {
     # value, loc, weights, grad, d_value, d_loc, d_weights, B, S, M, D, Lq,
     # L, P, shapes (host int[2L]), is_bf16, stream
     "pctrans_msdeform_bwd": [_P] * 7 + [_I] * 7 + [_P, _I, _P],
-    # feats, inst_xy, w1, w2, w3, b1, b2, b3, out, B, Q, Hm, Wm, Cm,
-    # rel_coord, stride, stream
-    "pctrans_render_fwd": [_P] * 9 + [_I] * 7 + [_P],
+    # feats, inst_xy, w1, w2, w3, b1, b2, b3, records (scratch), out, B, Q,
+    # Hm, Wm, Cm, rel_coord, stride, stream
+    "pctrans_render_fwd": [_P] * 10 + [_I] * 7 + [_P],
+    # B, Q, Cm -> floats of K3's records scratch (long long)
+    "pctrans_render_records_floats": [_I] * 3,
     # x, row_idx, row_w, col_idx, col_w, out, N, h, w, H, W, logit_t, stream
     "pctrans_resize_binarize": [_P] * 6 + [_I] * 5 + [ctypes.c_float, _P],
 }
@@ -122,7 +125,7 @@ def load_kernels() -> ctypes.CDLL:
     for name, argtypes in _SIGNATURES.items():
         fn = getattr(lib, name)
         fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
+        fn.restype = _RESTYPES.get(name, ctypes.c_int)
     lib.pctrans_cuda_error_string.argtypes = [ctypes.c_int]
     lib.pctrans_cuda_error_string.restype = ctypes.c_char_p
     return lib

@@ -4,8 +4,9 @@ forwards and the K2 backward.
 Replaces the TPU kernels ``pctrans_tpu/ops/msdeform_pallas2.py``
 ``_fused_kernel`` (K1) and ``_level_bwd_kernel`` (K2) with the CUDA kernels
 ``pctrans_torch/csrc/msdeform_fwd.cu`` (direct bilinear gather, one thread
-per output element) and ``pctrans_torch/csrc/msdeform_bwd.cu`` (the same
-thread map, scattering d_value with f32 atomics), and
+per 16-byte channel group of a head, loc and w staged by cp.async) and
+``pctrans_torch/csrc/msdeform_bwd.cu`` (one thread per channel, scattering
+d_value with f32 atomics), and
 ``pctrans_tpu/ops/msdeform_pallas.py`` ``_level_kernel`` (K5) with
 ``pctrans_torch/csrc/msdeform_separable.cu`` (the dense two-stage separable
 contraction); their headers give the bounds and the designs.
@@ -183,11 +184,30 @@ def _check_kernel_inputs(op, value, *tensors):
     _build.check_inputs(op, value, *tensors)
 
 
+def _check_forward_layout(value, loc, w) -> None:
+    """What K1 takes (``msdeform_fwd.cu``): a head's channels in whole
+    16-byte groups (8 bf16 or 4 f32), at most 64 such groups per query,
+    16-byte aligned tensors, 32-bit offsets inside one image."""
+    B, S, M, D = value.shape
+    per_load = 16 // value.element_size()
+    if D % per_load or M * D // per_load > 64:
+        raise ValueError(f"ms_deform_attn: the kernel loads {per_load} channels "
+                         f"of {value.dtype} per 16-byte access and runs at most "
+                         f"64 threads per query; D must be a multiple of "
+                         f"{per_load} and M * D <= {64 * per_load}, got M {M}, D {D}")
+    if any(t.data_ptr() % 16 for t in (value, loc, w)):
+        raise ValueError("ms_deform_attn: the kernel needs 16-byte aligned value, "
+                         "locations and weights")
+    if S * M * D >= 2 ** 31 or B * loc.shape[1] * M * D >= 2 ** 31:
+        raise ValueError("ms_deform_attn: the kernel's offsets are 32-bit")
+
+
 def _launch_forward(value, spatial_shapes, loc, w) -> torch.Tensor:
     """One K1 launch on contiguous CUDA tensors that need no grad."""
     B, S, M, D = value.shape
     _, Lq, _, L, P, _ = loc.shape
     _check_kernel_inputs("ms_deform_attn", value, loc, w)
+    _check_forward_layout(value, loc, w)
     out = torch.empty((B, Lq, M * D), dtype=value.dtype, device=value.device)
     lib = _build.load_kernels()
     rc = lib.pctrans_msdeform_fwd(

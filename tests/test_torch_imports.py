@@ -78,6 +78,15 @@ def test_chip_smoke_without_cuda_fails_and_prints_no_result():
     assert '"ok"' not in out.stdout and '"kernels"' not in out.stdout
 
 
+def test_kernel_turns_without_cuda_fail_and_print_no_time():
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["CUDA_VISIBLE_DEVICES"] = ""
+    out = subprocess.run([sys.executable, "-m", "pctrans_torch.ops.time_kernels", str(REPO)],
+                         cwd=REPO, env=env, capture_output=True, text=True, timeout=300)
+    assert out.returncode != 0
+    assert "ms device" not in out.stdout and "card:" not in out.stdout
+
+
 def test_build_without_nvcc_raises(monkeypatch, tmp_path):
     monkeypatch.setattr(_build.shutil, "which", lambda name: None)
     monkeypatch.setenv("CUDA_HOME", str(tmp_path))

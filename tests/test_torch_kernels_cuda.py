@@ -36,19 +36,30 @@ def _rel(a, b):
     return float((a.double() - b.double()).norm() / b.double().norm())
 
 
-@pytest.mark.parametrize("M,D,Lq,shapes", [
-    (8, 16, 37, [(5, 7), (3, 4), (9, 2)]),
-    (4, 8, 1, [(6, 5)]),
-    (2, 32, 300, [(11, 13), (6, 7)]),
+@pytest.mark.parametrize("M,D,Lq,P,shapes", [
+    (8, 16, 37, 3, [(5, 7), (3, 4), (9, 2)]),
+    (4, 8, 1, 3, [(6, 5)]),
+    (2, 32, 300, 3, [(11, 13), (6, 7)]),
+    (8, 16, 1001, 4, [(17, 16), (34, 32), (67, 63)]),  # the recipe's L=3, P=4 path
+    (3, 8, 45, 2, [(1, 9), (6, 1), (4, 4)]),           # levels of width / height 1
 ])
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
                                        (torch.bfloat16, 1e-2)])
-def test_msdeform_kernel_matches_twin(dev, M, D, Lq, shapes, dtype, tol):
+@pytest.mark.parametrize("samples", ["mixed", "nan", "outside"])
+def test_msdeform_kernel_matches_twin(dev, M, D, Lq, P, shapes, dtype, tol, samples):
+    """K1 against the twin with Lq not a multiple of the block's query tile;
+    ``nan``: a third of the locations NaN (both give 0 for them);
+    ``outside``: every sample outside its map (an all-zero output)."""
     g = torch.Generator(device=dev).manual_seed(0)
-    B, L, P = 2, len(shapes), 3
+    B, L = 2, len(shapes)
     S = sum(h * w for h, w in shapes)
     value = torch.randn(B, S, M, D, device=dev, generator=g).to(dtype)
     loc = torch.rand(B, Lq, M, L, P, 2, device=dev, generator=g) * 1.4 - 0.2
+    if samples == "nan":
+        nan = torch.rand(loc.shape, device=dev, generator=g) < 1 / 3
+        loc = loc.masked_fill(nan, float("nan"))
+    elif samples == "outside":
+        loc = torch.where(loc < 0.5, loc - 1.5, loc + 1.0)
     w = torch.rand(B, Lq, M, L, P, device=dev, generator=g)
     before = ms_deform_attn.launches
     out = ms_deform_attn(value, shapes, loc, w)
@@ -56,13 +67,20 @@ def test_msdeform_kernel_matches_twin(dev, M, D, Lq, shapes, dtype, tol):
     assert ms_deform_attn.launches == before + 1
     ref = ms_deform_attn(value, shapes, loc, w, impl="twin")
     assert out.dtype == dtype and out.shape == (B, Lq, M * D)
-    assert _rel(out, ref) <= tol
+    if samples == "outside":
+        assert not ref.any() and not out.any()
+    else:
+        assert bool(out.isfinite().all())
+        assert _rel(out, ref) <= tol
 
 
 @pytest.mark.parametrize("rel_coord", [True, False])
 @pytest.mark.parametrize("Q,hw,Cm", [(7, (13, 9), 16), (100, (33, 31), 8),
-                                     (5, (4, 6), 4)])
+                                     (5, (4, 6), 4), (300, (20, 26), 16),
+                                     (9, (133, 125), 12)])
 def test_render_kernel_matches_twin(dev, rel_coord, Q, hw, Cm):
+    """K3 against the f32 twin with Q not a multiple of the kernel's 8-query
+    chunk and HW not a multiple of its 256-pixel block."""
     g = torch.Generator(device=dev).manual_seed(1)
     B, ch = 2, 8
     cin = Cm + (2 if rel_coord else 0)
@@ -98,20 +116,40 @@ def test_resize_binarize_kernel_matches_twin(dev, shape, size):
     assert bool(((logits[differ] - t).abs() <= 1e-5).all())
 
 
-def test_render_kernel_refuses_unaligned_channels(dev):
-    """The kernel reads features as float4: Cm % 4 != 0 raises, and a
-    feature map at an odd offset is realigned, not misread."""
+def test_render_kernel_refuses_what_it_cannot_hold(dev):
+    """The kernel holds ch == 8 channels and Cm <= 16 feature columns in its
+    mma fragments: more raises.  A feature map at an odd offset is read as
+    it is (scalar loads, no alignment needed)."""
     B, Q, hw, ch = 1, 3, (4, 5), 8
     z = lambda *s: torch.rand(*s, device=dev)
-    with pytest.raises(ValueError, match="Cm % 4"):
-        dynamic_mask_render(z(B, 20, 6), z(B, Q, 2), z(B, Q, ch, 8), z(B, Q, ch, ch),
+    with pytest.raises(ValueError, match="Cm <= 16"):
+        dynamic_mask_render(z(B, 20, 20), z(B, Q, 2), z(B, Q, ch, 22), z(B, Q, ch, ch),
                             z(B, Q, 1, ch), z(B, Q, ch), z(B, Q, ch), z(B, Q, 1),
+                            hw, 4, True)
+    with pytest.raises(ValueError, match="ch == 8"):
+        dynamic_mask_render(z(B, 20, 8), z(B, Q, 2), z(B, Q, 4, 10), z(B, Q, 4, 4),
+                            z(B, Q, 1, 4), z(B, Q, 4), z(B, Q, 4), z(B, Q, 1),
                             hw, 4, True)
     feats = z(B * 20 * 16 + 1)[1:].reshape(B, 20, 16)
     args = (feats, z(B, Q, 2), z(B, Q, ch, 18), z(B, Q, ch, ch), z(B, Q, 1, ch),
             z(B, Q, ch), z(B, Q, ch), z(B, Q, 1), hw, 4, True)
     out = dynamic_mask_render(*args)
     assert _rel(out, dynamic_mask_render(*args, impl="twin")) <= 1e-5
+
+
+def test_msdeform_kernel_refuses_what_it_cannot_load(dev):
+    """K1 loads a head's channels in 16-byte groups from 16-byte aligned
+    tensors: D not a multiple of 8 (bf16) or 4 (f32), or a value tensor at
+    an unaligned offset, raises; nothing falls back to the twin."""
+    loc = torch.rand(1, 5, 2, 1, 2, 2, device=dev)
+    w = torch.rand(1, 5, 2, 1, 2, device=dev)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        ms_deform_attn(torch.randn(1, 6, 2, 4, device=dev).bfloat16(), [(2, 3)], loc, w)
+    with pytest.raises(ValueError, match="multiple of 4"):
+        ms_deform_attn(torch.randn(1, 6, 2, 6, device=dev), [(2, 3)], loc, w)
+    value = torch.randn(6 * 2 * 8 + 1, device=dev)[1:].reshape(1, 6, 2, 8)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        ms_deform_attn(value, [(2, 3)], loc, w)
 
 
 def test_msdeform_kernel_refuses_grad(dev):
