@@ -11,9 +11,12 @@ Phases:
      the eval shapes, K5 also against K1 and at the entry-point run's train
      and validation shapes (448x448 levels, batch 2 and 4), K2 (ms-deform
      backward) at the train shapes with a share of samples on integral
-     pixel coordinates, K3 (mask render) and K4 (upsample+binarize) against
-     their plain PyTorch twins on the card, then each one's time beside its
-     twin's (K2 alone, and K1 also at the train shapes; K5 beside K1);
+     pixel coordinates and on a contention case (every query of a head in
+     the same 2x2 cells of the 14x14 level), K3 (mask render) and K4
+     (upsample+binarize, at K=50 and K=100 masks) against their plain
+     PyTorch twins on the card, then each one's time beside its twin's (K2
+     alone, also on the contention case, and K1 also at the train shapes;
+     K5 beside K1);
   4. the f32 forward of the full-width CVPPP recipe (seeded random weights)
      through the kernels and through the twins, on one batch of four
      synthetic 530x500 scenes;
@@ -25,7 +28,9 @@ Phases:
      on the value, locations and weights one bf16 forward gives it;
   7. the bf16 recipe as trained: ``make_train_step`` with AdamW and
      WarmupPolyLR, one warm-up step then 5 counted steps on batches of two
-     448x448 scenes, with launch counters (K1 = K2 = 6 per step, K3 = 0);
+     448x448 scenes, with launch counters (K1 = K2 = 6 per step, K3 = 0),
+     then K2 gated and timed on the value, locations, weights and output
+     gradients the warm-up step gave it;
   8. the entry points as users run them: ``scripts/main_torch.py`` with the
      two CVPPP YAMLs on synthetic data (4 bf16 iterations at 448x448 batch
      2, checkpoints at 2 and 4, validation at 4) under
@@ -43,6 +48,7 @@ or in ``pctrans_torch`` imports JAX or the JAX package.
 from __future__ import annotations
 
 import dataclasses
+import itertools
 import json
 import math
 import os
@@ -104,38 +110,63 @@ def time_ms(fn, warmup: int = 3, reps: int = 20, trials: int = 5) -> float:
     return statistics.median(per_call)
 
 
-def device_ms(fn, reps: int = 10, kernel: str = "") -> float:
-    """Device time per call of ``fn()``: the kernels' own time summed by
-    ``torch.profiler``, host overhead excluded; with ``kernel``, only the
-    kernels whose name contains it.  A trace can lose events (one in a
-    trace of ten calls is common), so each kernel's time is its mean over
-    the events the trace kept times its launches per call, round(events /
-    reps); a trace that lost more than one event or a tenth of a kernel's
-    events is taken again."""
+TRACE_TRIES = 8                # traces taken before a device time gives up
+
+
+def trace_kernels(fn, reps: int, why_again) -> list:
+    """The kernel events of ``reps`` calls of ``fn()`` in one
+    ``torch.profiler`` trace.  A trace on the H100 can lose events, and now
+    and then every trace taken within a fraction of a second holds
+    none, so a trace for which ``why_again(events)`` gives a reason is
+    taken again after a pause that doubles from 0.1 s."""
     from torch.profiler import ProfilerActivity, profile
 
-    fn()
-    torch.cuda.synchronize()
-    for _ in range(3):
+    for attempt in range(TRACE_TRIES):
+        if attempt:
+            time.sleep(0.05 * 2 ** attempt)
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
-        events = [e for e in prof.key_averages()
-                  if kernel in e.key and e.self_device_time_total > 0]
+        events = [e for e in prof.key_averages() if e.self_device_time_total > 0]
+        why = why_again(events)
+        if why is None:
+            return events
+        print(f"trace {attempt + 1} of at most {TRACE_TRIES} set aside: {why}")
+    raise AssertionError(f"{TRACE_TRIES} traces in a row lost device events")
+
+
+def device_ms(fn, reps: int = 10, kernel: str = "") -> float:
+    """Device time per call of ``fn()``: the kernels' own time summed by
+    ``torch.profiler``, host overhead excluded; with ``kernel``, only the
+    kernels whose name contains it.  Each kernel's time is its mean over
+    the events the trace kept times its launches per call, round(events /
+    reps); a trace that lost more than one event or a tenth of a kernel's
+    events is taken again (``trace_kernels``)."""
+
+    def tally(events):
+        events = [e for e in events if kernel in e.key]
         per_call = [max(1, round(e.count / reps)) for e in events]
         lost = [n * reps - e.count for n, e in zip(per_call, events)]
-        expected = sum(per_call) * reps
-        if events and all(0 <= k <= max(1, n * reps // 10)
-                          for n, k in zip(per_call, lost)):
-            if sum(lost):
-                print(f"device_ms: the trace lost {sum(lost)} of {expected} device "
-                      "events; each kernel's time is its mean over those kept")
-            return sum(e.self_device_time_total / e.count * n
-                       for n, e in zip(per_call, events)) / 1e3
-        print(f"device_ms: the trace holds {sum(e.count for e in events)} device "
-              f"events against {expected} expected; tracing again")
-    raise AssertionError(f"the profiler lost device events of {kernel or 'the call'}")
+        return events, per_call, lost
+
+    def why_again(events):
+        events, per_call, lost = tally(events)
+        if not events:
+            return f"it holds no device event of {kernel or 'the call'}"
+        if all(0 <= k <= max(1, n * reps // 10) for n, k in zip(per_call, lost)):
+            return None
+        return (f"it holds {sum(e.count for e in events)} device events of "
+                f"{kernel or 'the call'} against {sum(per_call) * reps} expected")
+
+    fn()
+    torch.cuda.synchronize()
+    events, per_call, lost = tally(trace_kernels(fn, reps, why_again))
+    if sum(lost):
+        print(f"device_ms: the trace lost {sum(lost)} of {sum(per_call) * reps} device "
+              "events; each kernel's time is its mean over those kept")
+    return sum(e.self_device_time_total / e.count * n
+               for n, e in zip(per_call, events)) / 1e3
 
 
 def timed(name: str, kernel, twin) -> dict:
@@ -315,14 +346,10 @@ def gate_separable(dev, g, inputs, k1):
             "library_ms": None}
 
 
-def gate_msdeform_backward(dev, g):
-    """K2 through the autograd Function against the twin's autograd at the
-    train shapes; a quarter of the samples sit on integral pixel
-    coordinates, where both take the hat derivative 0.  Then K2 alone and
-    K1 alone at those shapes, each beside its twin, and the two together
-    under autograd.  Returns K2's record and K1's train-shape times."""
-    from pctrans_torch.ops.msdeform import ms_deform_attn, ms_deform_attn_backward
-
+def msdeform_backward_inputs(dev, g):
+    """K2's gate inputs at the train shapes (batch 2, 448x448 levels): value,
+    shapes, locations with a quarter of the samples on integral pixel
+    coordinates, weights, and the output gradient."""
     shapes = TRAIN_SHAPES
     S = sum(h * w for h, w in shapes)
     B, M, D, L, P = TRAIN_BATCH, 8, 16, 3, 4
@@ -334,8 +361,38 @@ def gate_msdeform_backward(dev, g):
         pick = torch.rand(loc[:, :, :, lid].shape, device=dev, generator=g) < 0.25
         loc[:, :, :, lid] = torch.where(pick, (k + 0.5) / size, loc[:, :, :, lid])
     w = torch.rand(B, S, M, L * P, device=dev, generator=g).softmax(-1)
-    w = w.reshape(B, S, M, L, P)
     gout = torch.randn(B, S, M * D, device=dev, generator=g)
+    return value, shapes, loc, w.reshape(B, S, M, L, P), gout
+
+
+def contention_locations(loc, shapes, g):
+    """``loc`` with every sample of level 0 (the coarsest) moved into one
+    2x2 block of cells per (batch, head): all queries of a head add into the
+    same four corners there."""
+    B, Lq, M, _, P, _ = loc.shape
+    H, W = shapes[0]
+    size = torch.tensor([W, H], dtype=torch.float32, device=loc.device)
+    corner = torch.randint(1, min(H, W) - 2, (B, 1, M, 1, 2), device=loc.device,
+                           generator=g)
+    frac = torch.rand(B, Lq, M, P, 2, device=loc.device, generator=g)
+    out = loc.clone()
+    out[:, :, :, 0] = (corner + frac + 0.5) / size     # pixel coordinate in [c, c+1)
+    return out
+
+
+def msdeform_backward_work(value, shapes, loc, w, grad):
+    """(bytes, FLOP) of one K2 call on these inputs: value, loc, w and grad
+    read once; f32 d_value, d_loc and d_w written once; ~34 FLOP per inside
+    sample and channel (the sample, the dot, two location terms, four
+    d_value terms)."""
+    n_bytes = nbytes(value, loc, w, grad) + 4 * (value.numel() + loc.numel() + w.numel())
+    return n_bytes, msdeform_samples_inside(shapes, loc) * 34 * value.shape[3]
+
+
+def check_msdeform_backward(name, value, shapes, loc, w, gout):
+    """K2 through the autograd Function against the twin's autograd on these
+    inputs, in f32 and bf16; returns the largest f32 absolute difference."""
+    from pctrans_torch.ops.msdeform import ms_deform_attn
 
     def grads(v, impl):
         prim = [t.clone().requires_grad_() for t in (v, loc, w)]
@@ -344,22 +401,41 @@ def gate_msdeform_backward(dev, g):
         return [p.grad for p in prim]
 
     errs, worst = {}, 0.0
-    for name, v in (("f32", value), ("bf16", value.bfloat16())):
+    for dt, v in (("f32", value), ("bf16", value.bfloat16())):
         ours = grads(v, None)
         torch.cuda.synchronize()
         ref = grads(v, "twin")
-        errs[name] = [rel_fro(a, b) for a, b in zip(ours, ref)]
-        if name == "f32":
+        errs[dt] = [rel_fro(a, b) for a, b in zip(ours, ref)]
+        if dt == "f32":
             worst = max(float((a - b).abs().max()) for a, b in zip(ours, ref))
-    print(f"K2 ms_deform_attn backward [B={B}, S=Lq={S}, M={M}, D={D}, L={L}, "
-          f"P={P}, 25% integral samples]: rel-Fro of d_value, d_loc, d_w: f32 "
+    B, S, M, D = value.shape
+    print(f"K2 ms_deform_attn backward, {name} [B={B}, S=Lq={S}, M={M}, D={D}]: "
+          "rel-Fro of d_value, d_loc, d_w: f32 "
           + " ".join(f"{e:.3e}" for e in errs["f32"]) + " (<= 1e-5), bf16 "
           + " ".join(f"{e:.3e}" for e in errs["bf16"]) + " (<= 1e-2)")
     if not (max(errs["f32"]) <= 1e-5 and max(errs["bf16"]) <= 1e-2):
-        raise AssertionError("K2 disagrees with the twin's autograd")
+        raise AssertionError(f"K2 disagrees with the twin's autograd ({name})")
+    return worst
+
+
+def gate_msdeform_backward(dev, g):
+    """K2 through the autograd Function against the twin's autograd at the
+    train shapes, on random locations (a quarter on integral pixel
+    coordinates, where both take the hat derivative 0) and on the
+    contention case (every query of a head in the same 2x2 cells of the
+    14x14 level).  Then K2 alone on both and K1 alone at those shapes, each
+    beside its twin, and the two together under autograd.  Returns K2's
+    record and K1's train-shape times."""
+    from pctrans_torch.ops.msdeform import ms_deform_attn, ms_deform_attn_backward
+
+    value, shapes, loc, w, gout = msdeform_backward_inputs(dev, g)
+    loc_c = contention_locations(loc, shapes, g)
+    worst = check_msdeform_backward("random locations, 25% integral", value, shapes,
+                                    loc, w, gout)
+    check_msdeform_backward("contention on the 14x14 level", value, shapes, loc_c,
+                            w, gout)
 
     vb, gb = value.bfloat16(), gout.bfloat16()
-    inside = msdeform_samples_inside(shapes, loc)
     # K2 alone: its wrapper (the zeroed f32 d_value, the kernel, the casts
     # of the results) beside the twin's autograd
     k2 = timed("K2 ms_deform_attn_backward alone, bf16 value",
@@ -368,13 +444,16 @@ def gate_msdeform_backward(dev, g):
     k2_kernel = device_ms(lambda: ms_deform_attn_backward(vb, shapes, loc, w, gb),
                           kernel="msdeform_bwd_kernel")
     print(f"K2 msdeform_bwd_kernel alone: {k2_kernel:.4f} ms device")
-    # value, loc, w, grad_out read once; f32 d_value, d_loc, d_w written
-    # once; ~34 FLOP per inside sample and channel (the sample, the dot, two
-    # location terms, four d_value terms)
-    n_bytes = nbytes(vb, loc, w, gb) + 4 * (value.numel() + loc.numel() + w.numel())
     k2_rec = {"max_abs_err": worst, **k2, "kernel_device_ms": k2_kernel,
-              **bound("K2", n_bytes, inside * 34 * D, k2["device_ms"]),
+              **bound("K2", *msdeform_backward_work(vb, shapes, loc, w, gb),
+                      k2["device_ms"]),
               "library_ms": None}
+    cont = device_ms(lambda: ms_deform_attn_backward(vb, shapes, loc_c, w, gb),
+                     kernel="msdeform_bwd_kernel")
+    print(f"K2 msdeform_bwd_kernel alone, contention case: {cont:.4f} ms device")
+    k2_rec.update(contention_kernel_device_ms=cont, contention_bound_ms=bound(
+        "K2, contention case", *msdeform_backward_work(vb, shapes, loc_c, w, gb),
+        cont)["bound_ms"])
     k1 = timed("K1 ms_deform_attn alone at the train shapes, bf16 value",
                lambda: ms_deform_attn(vb, shapes, loc, w),
                lambda: ms_deform_attn(vb, shapes, loc, w, impl="twin"))
@@ -393,6 +472,43 @@ def gate_msdeform_backward(dev, g):
     return k2_rec, {"train_ms": k1["ms"], "train_device_ms": k1["device_ms"],
                     "train_plain_ms": k1["plain_ms"],
                     "train_bound_ms": k1_bound["bound_ms"]}
+
+
+def time_k2_on_model_inputs(calls) -> dict:
+    """K2 on the (value, shapes, locations, weights, output gradient) of
+    ``calls``, the six encoder layers of one bf16 train step: each against
+    the twin's autograd, then ms per launch (call, device, the kernel alone)
+    beside the twin's, and the bound on those inputs."""
+    from pctrans_torch.ops.msdeform import ms_deform_attn_backward
+
+    n = len(calls)
+    errs = {"bf16": [], "f32": []}
+    for c in calls:
+        v, shapes, loc, w, grad = c
+        for dt, args in (("bf16", c), ("f32", (v.float(), shapes, loc, w, grad.float()))):
+            ours = ms_deform_attn_backward(*args)
+            torch.cuda.synchronize()
+            errs[dt].append(max(rel_fro(a.float(), b.float()) for a, b in
+                                zip(ours, ms_deform_attn_backward(*args, impl="twin"))))
+    print(f"K2 on the inputs of one bf16 train step's {n} encoder layers (value "
+          f"{calls[0][0].dtype}, grad {calls[0][4].dtype}): largest rel-Fro of d_value, "
+          "d_loc, d_w to the twin's autograd per layer, bf16 "
+          + " ".join(f"{e:.2e}" for e in errs["bf16"]) + " (<= 1e-2), the same in f32 "
+          + " ".join(f"{e:.2e}" for e in errs["f32"]) + " (<= 1e-5)")
+    if not (max(errs["bf16"]) <= 1e-2 and max(errs["f32"]) <= 1e-5):
+        raise AssertionError("K2 disagrees with the twin's autograd on the model's inputs")
+    run = lambda: [ms_deform_attn_backward(*c) for c in calls]
+    ms = time_ms(run) / n
+    plain = time_ms(lambda: [ms_deform_attn_backward(*c, impl="twin") for c in calls]) / n
+    dev_ms = device_ms(run) / n
+    kernel_ms = device_ms(run, kernel="msdeform_bwd_kernel") / n
+    print(f"K2 on the model's inputs, per launch: {ms:.4f} ms/call ({dev_ms:.4f} ms "
+          f"device, the kernel {kernel_ms:.4f}), twin {plain:.4f} ms/call")
+    work = [msdeform_backward_work(*c) for c in calls]
+    rec = bound("K2 on the model's inputs, per launch", sum(b for b, _ in work) / n,
+                sum(f for _, f in work) / n, dev_ms)
+    return {"model_ms": ms, "model_device_ms": dev_ms, "model_kernel_device_ms": kernel_ms,
+            "model_plain_ms": plain, "model_bound_ms": rec["bound_ms"]}
 
 
 def render_inputs(dev, g):
@@ -438,40 +554,53 @@ def gate_render(dev, g):
             "bound_ms_f32_cuda_cores": f32["bound_ms"], "library_ms": None}
 
 
+def resize_inputs(dev, g, K):
+    """K4's logits at the eval shape: [4, K, 133, 125] f32 (K=50 top-k, K=100
+    the full-Q re-run), upsampled to 530x500."""
+    return torch.randn(BATCH, K, 133, 125, device=dev, generator=g) * 3.0
+
+
 def gate_resize_binarize(dev, g):
+    """K4 against its twin at K=50 and K=100: at most 1e-4 of the bits
+    flipped, each within 1e-4 of the threshold; then each timed beside the
+    twin and the two-call PyTorch yardstick.  One record, K=100 under
+    ``k100_*`` keys."""
     from pctrans_torch.ops.resize import resize_bilinear
     from pctrans_torch.ops.resize_binarize import resize_bilinear_binarize
 
-    K, h, w = 50, 133, 125
     logit_t = math.log(0.69 / 0.31)
-    x = torch.randn(BATCH, K, h, w, device=dev, generator=g) * 3.0
-    out = resize_bilinear_binarize(x, IMAGE_HW, logit_t)
-    torch.cuda.synchronize()
-    twin = resize_bilinear_binarize(x, IMAGE_HW, logit_t, impl="twin")
-    logits = resize_bilinear(x, IMAGE_HW)
-    flips = out != twin
-    n_flips = int(flips.sum())
-    worst = float((logits[flips] - logit_t).abs().max()) if n_flips else 0.0
-    frac = n_flips / out.numel()
-    print(f"K4 resize_bilinear_binarize [B={BATCH}, K={K}, {h}x{w} -> "
-          f"{IMAGE_HW[0]}x{IMAGE_HW[1]}]: {n_flips} flipped of {out.numel()} "
-          f"({frac:.2e}; <= 1e-4), largest |logit - t| at a flip {worst:.3e} "
-          "(<= 1e-4)")
-    if not (frac <= 1e-4 and worst <= 1e-4):
-        raise AssertionError("K4 disagrees with its twin")
-    times = timed("K4", lambda: resize_bilinear_binarize(x, IMAGE_HW, logit_t),
-                  lambda: resize_bilinear_binarize(x, IMAGE_HW, logit_t,
-                                                   impl="twin"))
-    # yardstick of two PyTorch calls (no single call binarizes): upsample
-    # with F.interpolate, then compare
-    library = time_ms(lambda: torch.nn.functional.interpolate(
-        x, IMAGE_HW, mode="bilinear", align_corners=False) > logit_t)
-    print(f"K4 yardstick F.interpolate(bilinear) > t: {library:.4f} ms/call")
-    # two lerps along each axis and a compare, ~10 FLOP per output pixel
-    flops = 10 * out.numel()
-    return {"max_abs_err": float((out.int() - twin.int()).abs().max()), **times,
-            **bound("K4", nbytes(x, out), flops, times["device_ms"]),
-            "library_ms": library}
+    rec = {}
+    for K in (50, 100):
+        x = resize_inputs(dev, g, K)
+        out = resize_bilinear_binarize(x, IMAGE_HW, logit_t)
+        torch.cuda.synchronize()
+        twin = resize_bilinear_binarize(x, IMAGE_HW, logit_t, impl="twin")
+        logits = resize_bilinear(x, IMAGE_HW)
+        flips = out != twin
+        n_flips = int(flips.sum())
+        worst = float((logits[flips] - logit_t).abs().max()) if n_flips else 0.0
+        frac = n_flips / out.numel()
+        print(f"K4 resize_bilinear_binarize [B={BATCH}, K={K}, {tuple(x.shape[2:])} -> "
+              f"{IMAGE_HW}]: {n_flips} flipped of {out.numel()} ({frac:.2e}; <= 1e-4), "
+              f"largest |logit - t| at a flip {worst:.3e} (<= 1e-4)")
+        if not (frac <= 1e-4 and worst <= 1e-4):
+            raise AssertionError(f"K4 disagrees with its twin at K={K}")
+        del logits
+        times = timed(f"K4 at K={K}", lambda: resize_bilinear_binarize(x, IMAGE_HW, logit_t),
+                      lambda: resize_bilinear_binarize(x, IMAGE_HW, logit_t, impl="twin"))
+        # yardstick of two PyTorch calls (no single call binarizes): upsample
+        # with F.interpolate, then compare
+        library = time_ms(lambda: torch.nn.functional.interpolate(
+            x, IMAGE_HW, mode="bilinear", align_corners=False) > logit_t)
+        print(f"K4 yardstick at K={K}, F.interpolate(bilinear) > t: {library:.4f} ms/call")
+        # two lerps along each axis and a compare, ~10 FLOP per output pixel
+        r = {"max_abs_err": float((out.int() - twin.int()).abs().max()), **times,
+             **bound(f"K4 at K={K}", nbytes(x, out), 10 * out.numel(),
+                     times["device_ms"]),
+             "library_ms": library}
+        rec.update(r if K == 50 else {f"k100_{k}": v for k, v in r.items()
+                                      if k != "bound_by"})
+    return rec
 
 
 # ----------------------------------------------------------------- slices
@@ -653,14 +782,13 @@ def train_f32_backward(dev):
 
 
 def train_bf16(dev, card):
-    from torch.profiler import ProfilerActivity, profile
-
     from pctrans_torch.config import CVPPP_RECIPE
     from pctrans_torch.engine.solver import (CVPPP_SOLVER, build_lr_scheduler,
                                              build_optimizer)
     from pctrans_torch.engine.train_step import make_train_step
     from pctrans_torch.losses.criterion import SetCriterion, CVPPP_CRITERION
-    from pctrans_torch.ops.msdeform import ms_deform_attn, ms_deform_attn_backward
+    from pctrans_torch.ops.msdeform import (MSDeformAttnFunction, ms_deform_attn,
+                                            ms_deform_attn_backward)
     from pctrans_torch.ops.render import dynamic_mask_render
 
     model = build_model(CVPPP_RECIPE, dev)
@@ -669,8 +797,24 @@ def train_bf16(dev, card):
                            build_lr_scheduler(opt, CVPPP_SOLVER), MAX_INSTANCES,
                            torch.Generator(device=dev).manual_seed(SEED))
     batches = list(scene_batches(N_TRAIN_STEPS + 3, SEED + 2, TRAIN_BATCH, TRAIN_HW))
-    step(batches[0])                                   # warm-up, not counted
+    # the warm-up step, not counted, keeps the inputs it passes to K2
+    k2_calls = []
+    backward = MSDeformAttnFunction.backward
+
+    def keep_k2_inputs(ctx, grad_out):
+        value, loc, w = ctx.saved_tensors
+        k2_calls.append((value.detach(), ctx.spatial_shapes, loc.detach(), w.detach(),
+                         grad_out.detach()))
+        return backward(ctx, grad_out)
+
+    MSDeformAttnFunction.backward = staticmethod(keep_k2_inputs)
+    try:
+        step(batches[0])
+    finally:
+        MSDeformAttnFunction.backward = staticmethod(backward)
     torch.cuda.synchronize()
+    if len(k2_calls) != CVPPP_RECIPE.enc_layers:
+        raise AssertionError(f"{len(k2_calls)} ms-deform backward calls in one step")
     before = {n: p.detach().clone() for n, p in model.named_parameters()}
 
     counters = (ms_deform_attn, ms_deform_attn_backward, dynamic_mask_render)
@@ -700,12 +844,19 @@ def train_bf16(dev, card):
     if changed < 0.9 * len(before):
         raise AssertionError("the optimizer left the parameters unchanged")
 
+    # the steps' device time, from a trace that kept K1's launches (all
+    # but one at most)
     n_prof = 2
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for batch in batches[1 + N_TRAIN_STEPS:]:
-            step(batch)
-        torch.cuda.synchronize()
-    events = sorted(prof.key_averages(), key=lambda e: -e.self_device_time_total)
+    profiled = itertools.cycle(batches[1 + N_TRAIN_STEPS:])
+
+    def why_again(events):
+        k1_events = sum(e.count for e in events if "msdeform_fwd_kernel" in e.key)
+        if abs(k1_events - c.enc_layers * n_prof) <= 1:
+            return None
+        return f"it holds {k1_events} of K1's {c.enc_layers * n_prof} launches"
+
+    events = sorted(trace_kernels(lambda: step(next(profiled)), n_prof, why_again),
+                    key=lambda e: -e.self_device_time_total)
     dev_ms = sum(e.self_device_time_total for e in events) / n_prof / 1e3
     host_ms = statistics.median(step_ms)
     print(f"bf16 train step {host_ms:.3f} ms (host clock, median of "
@@ -718,7 +869,7 @@ def train_bf16(dev, card):
               f"{e.count // n_prof:5d}  {e.key[:110]}")
     print("losses of the last counted step: " + json.dumps(
         {k: round(v, 6) for k, v in losses.items()}))
-    return launches
+    return launches, time_k2_on_model_inputs(k2_calls)
 
 
 def entry_points(card):
@@ -853,7 +1004,8 @@ def main() -> int:
     train_f32_backward(dev)
     (k1_eval, k3, k4), k1_model = slice_bf16(dev, card)
     k1_gate.update(k1_model)
-    k1, k2, _ = train_bf16(dev, card)
+    (k1, k2, _), k2_model = train_bf16(dev, card)
+    k2_gate.update(k2_model)
     k5 = entry_points(card)
     print(f"main paths: train K1 {k1}, K2 {k2}; eval K1 {k1_eval}, K3 {k3}, "
           f"K4 {k4}; entry points under PCTRANS_MSDA_IMPL=pallas K5 {k5} (the "

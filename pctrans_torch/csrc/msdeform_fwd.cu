@@ -198,35 +198,13 @@ template <typename T, int kL, int kP>
 int launch(const void* value, const void* loc, const void* attw, void* out,
            int n_bq, int Lq, int S, int M, int D, int L, int P, int tq,
            int threads, size_t smem, const Levels& lv, cudaStream_t s) {
-  auto kernel = msdeform_fwd_kernel<T, kL, kP>;
-  // The resident blocks depend only on this instance, the device, the block
-  // size and the shared memory: worked out once per host thread and key, so
-  // a launch makes no occupancy query.
-  struct Wave {
-    int dev = -1, threads = 0;
-    size_t smem = 0;
-    int blocks = 0;
-  };
-  static thread_local Wave wave;
-  int dev = 0;
-  cudaError_t e = cudaGetDevice(&dev);
+  const auto kernel = msdeform_fwd_kernel<T, kL, kP>;
+  int wave = 0;
+  const cudaError_t e = resident_blocks(kernel, threads, smem, &wave);
   if (e != cudaSuccess) return (int)e;
-  if (dev != wave.dev || threads != wave.threads || smem != wave.smem) {
-    if (smem > 48 * 1024) {
-      e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)smem);
-      if (e != cudaSuccess) return (int)e;
-    }
-    int sms = 0, per_sm = 0;
-    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    if (e != cudaSuccess) return (int)e;
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, smem);
-    if (e != cudaSuccess) return (int)e;
-    wave = Wave{dev, threads, smem, sms * max(per_sm, 1)};
-  }
   const int n_tiles = (n_bq + tq - 1) / tq;
   // one resident wave; each block walks its tiles with the copy ahead
-  const int grid = max(1, min(n_tiles, wave.blocks));
+  const int grid = max(1, min(n_tiles, wave));
   kernel<<<grid, threads, smem, s>>>(
       static_cast<const T*>(value), static_cast<const float*>(loc),
       static_cast<const float*>(attw), static_cast<T*>(out), n_bq, Lq, S, M, D,

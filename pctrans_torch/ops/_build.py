@@ -43,15 +43,16 @@ _SIGNATURES = {
     "pctrans_msdeform_sep_fwd": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                                  _P, _I, _P],
     # value, loc, weights, grad, d_value, d_loc, d_weights, B, S, M, D, Lq,
-    # L, P, shapes (host int[2L]), is_bf16, stream
-    "pctrans_msdeform_bwd": [_P] * 7 + [_I] * 7 + [_P, _I, _P],
+    # L, P, shapes (host int[2L]), agg_mask, is_bf16, stream
+    "pctrans_msdeform_bwd": [_P] * 7 + [_I] * 7 + [_P, _I, _I, _P],
     # feats, inst_xy, w1, w2, w3, b1, b2, b3, records (scratch), out, B, Q,
     # Hm, Wm, Cm, rel_coord, stride, stream
     "pctrans_render_fwd": [_P] * 10 + [_I] * 7 + [_P],
     # B, Q, Cm -> floats of K3's records scratch (long long)
     "pctrans_render_records_floats": [_I] * 3,
-    # x, row_idx, row_w, col_idx, col_w, out, N, h, w, H, W, logit_t, stream
-    "pctrans_resize_binarize": [_P] * 6 + [_I] * 5 + [ctypes.c_float, _P],
+    # x, row_idx, row_w, col_idx, col_w, out, N, h, w, H, W, rows_per_tile,
+    # logit_t, stream
+    "pctrans_resize_binarize": [_P] * 6 + [_I] * 6 + [ctypes.c_float, _P],
 }
 
 

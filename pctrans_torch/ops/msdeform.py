@@ -5,8 +5,9 @@ Replaces the TPU kernels ``pctrans_tpu/ops/msdeform_pallas2.py``
 ``_fused_kernel`` (K1) and ``_level_bwd_kernel`` (K2) with the CUDA kernels
 ``pctrans_torch/csrc/msdeform_fwd.cu`` (direct bilinear gather, one thread
 per 16-byte channel group of a head, loc and w staged by cp.async) and
-``pctrans_torch/csrc/msdeform_bwd.cu`` (one thread per channel, scattering
-d_value with f32 atomics), and
+``pctrans_torch/csrc/msdeform_bwd.cu`` (one thread per 4 channels of a
+head, loc and w staged by cp.async, d_value scattered with 4-channel f32
+vector reductions), and
 ``pctrans_tpu/ops/msdeform_pallas.py`` ``_level_kernel`` (K5) with
 ``pctrans_torch/csrc/msdeform_separable.cu`` (the dense two-stage separable
 contraction); their headers give the bounds and the designs.
@@ -321,6 +322,40 @@ def ms_deform_attn_separable(value: torch.Tensor,
 ms_deform_attn_separable.launches = 0
 
 
+AGGREGATE_SAMPLES_PER_POSITION = 32
+
+
+def backward_aggregated_levels(spatial_shapes: Sequence[Tuple[int, int]],
+                               Lq: int, P: int) -> int:
+    """K2's plan: bit ``l`` set when level ``l``'s d_value reductions are
+    first summed over the lanes of a warp that hit the same corner
+    (``msdeform_bwd.cu``), which pays where neighbouring queries collide.
+    That is the levels whose queries put at least
+    ``AGGREGATE_SAMPLES_PER_POSITION`` samples on each position on average
+    (``Lq * P / (H * W)`` per batch and head): at the CVPPP train shape the
+    14x14 level takes 84 (faster on the model's own inputs), the 28x28 level
+    21 (slower)."""
+    return sum(1 << lid for lid, (H, W) in enumerate(spatial_shapes)
+               if Lq * P >= AGGREGATE_SAMPLES_PER_POSITION * H * W)
+
+
+def _check_backward_layout(value, loc, w) -> None:
+    """What K2 takes (``msdeform_bwd.cu``): 4 channels per thread, a head's
+    D / 4 threads a power of two <= 32 (they sum within a warp), 16-byte
+    aligned tensors, 32-bit offsets inside one image."""
+    B, S, M, D = value.shape
+    lanes = D // 4
+    if D % 4 or lanes > 32 or lanes & (lanes - 1):
+        raise ValueError(f"ms_deform_attn_backward: a kernel thread takes 4 "
+                         f"channels and a head's D / 4 threads sum within a warp; "
+                         f"D must be 4 times a power of two <= 32, got {D}")
+    if any(t.data_ptr() % 16 for t in (value, loc, w)):
+        raise ValueError("ms_deform_attn_backward: the kernel needs 16-byte "
+                         "aligned value, locations and weights")
+    if S * M * D >= 2 ** 31:
+        raise ValueError("ms_deform_attn_backward: the kernel's offsets are 32-bit")
+
+
 def ms_deform_attn_backward(value: torch.Tensor,
                             spatial_shapes: Sequence[Tuple[int, int]],
                             sampling_locations: torch.Tensor,
@@ -330,9 +365,11 @@ def ms_deform_attn_backward(value: torch.Tensor,
     """K2 wrapper: ``(d_value, d_locations, d_weights)`` of
     ``sum(ms_deform_attn(...) * grad_out)``, in the primals' dtypes.
 
-    CUDA tensors launch the kernel (``d_value`` accumulates in f32 with
-    atomics, so it is not bit-reproducible); CPU tensors or ``impl="twin"``
-    take the twin's autograd.
+    CUDA tensors launch the kernel: ``d_value`` accumulates in f32 with
+    vector reductions in global memory, in no fixed order,
+    so it is not deterministic (run to run it differs by f32 rounding);
+    ``d_locations`` and ``d_weights`` have one writer each.  CPU tensors or
+    ``impl="twin"`` take the twin's autograd.
     """
     _check_shapes("ms_deform_attn_backward", value, spatial_shapes,
                   sampling_locations)
@@ -344,15 +381,14 @@ def ms_deform_attn_backward(value: torch.Tensor,
             return torch.autograd.grad(out, prim, grad_out.to(out.dtype))
     B, S, M, D = value.shape
     _, Lq, _, L, P, _ = sampling_locations.shape
-    if D > 32 or D & (D - 1):
-        raise ValueError(f"ms_deform_attn_backward: the kernel reduces over a "
-                         f"head's channels within a warp, D must be a power "
-                         f"of two <= 32, got {D}")
     value = value.detach().contiguous()
     loc = sampling_locations.detach().float().contiguous()
     w = attention_weights.detach().float().contiguous()
     grad = grad_out.detach().to(value.dtype).contiguous()
+    if grad.data_ptr() % 16:
+        grad = grad.clone()         # the kernel reads it in aligned groups
     _check_kernel_inputs("ms_deform_attn_backward", value, loc, w, grad)
+    _check_backward_layout(value, loc, w)
     d_value = torch.zeros((B, S, M, D), dtype=torch.float32, device=value.device)
     d_loc = torch.empty_like(loc)
     d_w = torch.empty_like(w)
@@ -361,6 +397,7 @@ def ms_deform_attn_backward(value: torch.Tensor,
         value.data_ptr(), loc.data_ptr(), w.data_ptr(), grad.data_ptr(),
         d_value.data_ptr(), d_loc.data_ptr(), d_w.data_ptr(),
         B, S, M, D, Lq, L, P, _shapes_arg(spatial_shapes),
+        backward_aggregated_levels(spatial_shapes, Lq, P),
         int(value.dtype == torch.bfloat16), _build.stream_of(value))
     _build.check(lib, rc, "ms_deform_attn_backward")
     ms_deform_attn_backward.launches += 1

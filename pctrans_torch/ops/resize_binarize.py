@@ -2,9 +2,10 @@
 wrapper.
 
 Replaces the TPU kernel ``pctrans_tpu/ops/resize_pallas.py:_kernel`` with
-the CUDA kernel ``pctrans_torch/csrc/resize_binarize.cu`` (one thread per
-output pixel, 2x2 stencil in f32, u8 out; its header gives the bound and the
-design).  ``[B, Q, h, w]`` f32 logits -> ``[B, Q, H, W]`` u8
+the CUDA kernel ``pctrans_torch/csrc/resize_binarize.cu`` (one thread per 4
+output columns of a tile of ``TILE_ROWS`` rows: each W-interpolated source
+row formed once and kept in registers while the rows that tap it pass, 4
+output bytes per store; its header gives the bound and the design).  ``[B, Q, h, w]`` f32 logits -> ``[B, Q, H, W]`` u8
 ``(resize_bilinear(x) > logit_t)``; the full-resolution logits are never
 stored.
 """
@@ -45,6 +46,10 @@ def interp_table(in_size: int, out_size: int) -> Tuple[np.ndarray, np.ndarray]:
     return np.clip(taps, 0, in_size - 1).astype(np.int32), w.astype(np.float32)
 
 
+TILE_ROWS = 32     # output rows per K4 thread: it keeps the last two
+                   # W-interpolated source rows in registers across them
+
+
 @functools.lru_cache(maxsize=32)
 def _device_table(in_size: int, out_size: int, device: torch.device):
     """:func:`interp_table` on the card, built once per shape: a host-to-device
@@ -72,7 +77,8 @@ def resize_bilinear_binarize(x: torch.Tensor, size: Tuple[int, int],
     lib = _build.load_kernels()
     rc = lib.pctrans_resize_binarize(
         x.data_ptr(), row_idx.data_ptr(), row_w.data_ptr(), col_idx.data_ptr(),
-        col_w.data_ptr(), out.data_ptr(), B * Q, h, w, H, W, float(logit_t),
+        col_w.data_ptr(), out.data_ptr(), B * Q, h, w, H, W, TILE_ROWS,
+        float(logit_t),
         _build.stream_of(x))
     _build.check(lib, rc, "resize_bilinear_binarize")
     resize_bilinear_binarize.launches += 1

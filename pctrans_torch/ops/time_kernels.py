@@ -1,17 +1,23 @@
-"""Time K1 (ms-deform forward) and K3 (mask render) of two checkouts of the
-PyTorch port in turns on one CUDA card.
+"""Time K1 (ms-deform forward), K2 (ms-deform backward), K3 (mask render)
+and K4 (upsample+binarize) of two checkouts of the PyTorch port in turns on
+one CUDA card.
 
     python3 -m pctrans_torch.ops.time_kernels OLD_TREE [NEW_TREE]
 
 NEW_TREE defaults to this checkout.  The turns run old, new, new, old, each
 in its own process, which imports ``pctrans_torch`` from its tree (building
 that tree's kernels into the tree's own ``build/`` at first use) and times
-the kernels through the public wrappers ``ms_deform_attn`` and
-``dynamic_mask_render`` on ``chip_smoke.py``'s eval-shape inputs, made from
-the same seed in every turn: call ms from CUDA events and device ms from
-the profiler (``chip_smoke.time_ms`` and ``chip_smoke.device_ms`` of this
-checkout).  Prints the card, one line per turn and kernel, and the rel-Fro
-between the two trees' outputs; exits non-zero without a card.
+the kernels through the public wrappers on ``chip_smoke.py``'s inputs, made
+from the same seed in every turn: K1 and K3 at the eval shapes, K2 alone
+(``ms_deform_attn_backward``) on the K2 gate's train-shape inputs and on
+its contention case, K4 at [4, 50, 133, 125] and [4, 100, 133, 125] ->
+530x500.  Call ms from CUDA
+events, device ms from the profiler (``chip_smoke.time_ms`` and
+``chip_smoke.device_ms`` of this checkout), and for K2 also the kernel's own
+device ms.  Prints the card, one line per turn and kernel, then old against
+new: the rel-Fro of K1's and K3's outputs and of K2's d_value, d_loc and
+d_w, and K4's differing bytes with the largest distance of their f32
+logits from the threshold.  Exits non-zero without a card.
 """
 
 from __future__ import annotations
@@ -19,6 +25,7 @@ from __future__ import annotations
 import argparse
 import importlib.util
 import json
+import math
 import subprocess
 import sys
 import tempfile
@@ -27,6 +34,7 @@ from pathlib import Path
 import torch
 
 REPO = Path(__file__).resolve().parents[2]
+LOGIT_T = math.log(0.69 / 0.31)     # the recipe's mask threshold as a logit
 
 
 def load_smoke():
@@ -40,8 +48,9 @@ def load_smoke():
 def one_turn(tree: Path, out: Path) -> None:
     sys.path[0] = str(tree)          # in place of this file's directory
     import pctrans_torch
-    from pctrans_torch.ops.msdeform import ms_deform_attn
+    from pctrans_torch.ops.msdeform import ms_deform_attn, ms_deform_attn_backward
     from pctrans_torch.ops.render import dynamic_mask_render
+    from pctrans_torch.ops.resize_binarize import resize_bilinear_binarize
 
     if not Path(pctrans_torch.__file__).resolve().is_relative_to(tree):
         raise RuntimeError(f"pctrans_torch came from {pctrans_torch.__file__}, not {tree}")
@@ -51,12 +60,50 @@ def one_turn(tree: Path, out: Path) -> None:
     value, shapes, loc, w = smoke.msdeform_inputs(dev, g)
     vb = value.bfloat16()
     render_args = smoke.render_inputs(dev, g)
+    v2, shapes2, loc2, w2, gout2 = smoke.msdeform_backward_inputs(dev, g)
+    v2, gout2 = v2.bfloat16(), gout2.bfloat16()
+    loc_c = smoke.contention_locations(loc2, shapes2, g)
+    xs = {K: smoke.resize_inputs(dev, g, K) for K in (50, 100)}
+    t = LOGIT_T
     calls = {"K1": lambda: ms_deform_attn(vb, shapes, loc, w),
-             "K3": lambda: dynamic_mask_render(*render_args)}
+             "K2": lambda: ms_deform_attn_backward(v2, shapes2, loc2, w2, gout2),
+             "K2 contention": lambda: ms_deform_attn_backward(v2, shapes2, loc_c, w2, gout2),
+             "K3": lambda: dynamic_mask_render(*render_args),
+             "K4 K=50": lambda: resize_bilinear_binarize(xs[50], smoke.IMAGE_HW, t),
+             "K4 K=100": lambda: resize_bilinear_binarize(xs[100], smoke.IMAGE_HW, t)}
     rec = {name: {"ms": smoke.time_ms(fn), "device_ms": smoke.device_ms(fn)}
            for name, fn in calls.items()}
-    torch.save({name: fn().float().cpu() for name, fn in calls.items()}, out)
+    for name in ("K2", "K2 contention"):
+        rec[name]["kernel_device_ms"] = smoke.device_ms(calls[name], kernel="msdeform_bwd_kernel")
+    outs = {}
+    for name, fn in calls.items():
+        res = fn()
+        outs[name] = [r.cpu() for r in (res if isinstance(res, tuple) else (res,))]
+    outs["K4 inputs"] = {K: x.cpu() for K, x in xs.items()}
+    torch.save(outs, out)
     print(json.dumps(rec))
+
+
+def compare(old: dict, new: dict, image_hw) -> None:
+    """Old against new outputs of the same inputs."""
+    from pctrans_torch.ops.resize import resize_bilinear
+
+    smoke = load_smoke()
+    for name in ("K1", "K2", "K2 contention", "K3"):
+        errs = " ".join(f"{smoke.rel_fro(b.float(), a.float()):.3e}"
+                        for a, b in zip(old[name], new[name]))
+        what = "d_value, d_loc, d_w" if name.startswith("K2") else "output"
+        print(f"{name} old vs new {what}: rel-Fro {errs}")
+    for K, x in new["K4 inputs"].items():
+        a, b = old[f"K4 K={K}"][0], new[f"K4 K={K}"][0]
+        differ = a != b
+        n = int(differ.sum())
+        far = 0.0
+        if n:
+            logits = resize_bilinear(x.cuda(), image_hw).cpu()
+            far = float((logits[differ] - LOGIT_T).abs().max())
+        print(f"K4 K={K} old vs new: {n} of {a.numel()} bytes differ"
+              + (f", all within {far:.3e} of the threshold in the f32 logits" if n else ""))
 
 
 def main() -> int:
@@ -83,11 +130,11 @@ def main() -> int:
                                   str(outs[label])], stdout=subprocess.PIPE,
                                  text=True, check=True)
             for name, r in json.loads(res.stdout.splitlines()[-1]).items():
+                kernel = (f" (the kernel {r['kernel_device_ms']:.4f})"
+                          if "kernel_device_ms" in r else "")
                 print(f"{name} {label} ({tree}): {r['ms']:.4f} ms/call, "
-                      f"{r['device_ms']:.4f} ms device", flush=True)
-        old, new = torch.load(outs["old"]), torch.load(outs["new"])
-    for name in old:
-        print(f"{name} old vs new output: rel-Fro {smoke.rel_fro(new[name], old[name]):.3e}")
+                      f"{r['device_ms']:.4f} ms device{kernel}", flush=True)
+        compare(torch.load(outs["old"]), torch.load(outs["new"]), smoke.IMAGE_HW)
     return 0
 
 
