@@ -14,7 +14,8 @@ Phases:
      pixel coordinates and on a contention case (every query of a head in
      the same 2x2 cells of the 14x14 level), K3 (mask render) and K4
      (upsample+binarize, at K=50 and K=100 masks) against their plain
-     PyTorch twins on the card, then each one's time beside its twin's (K2
+     PyTorch twins on the card (K5 in bf16 at rel-Fro 1e-4: it rounds
+     hat_x as its twin does), then each one's time beside its twin's (K2
      alone, also on the contention case, and K1 also at the train shapes;
      K5 beside K1);
   4. the f32 forward of the full-width CVPPP recipe (seeded random weights)
@@ -24,8 +25,10 @@ Phases:
      two synthetic 448x448 scenes: the pixel decoder's gradients of
      loss_emb + loss_sem through K1/K2 against the twin's;
   6. the bf16 recipe as served: the evaluator over three batches of four
-     scenes, with launch counters showing the kernels ran, then K1 timed
-     on the value, locations and weights one bf16 forward gives it;
+     scenes, with launch counters showing the kernels ran, then K1 gated
+     and timed on the value, locations and weights one bf16 forward gives
+     it, and K5 on those of one bf16 forward under
+     ``PCTRANS_MSDA_IMPL=pallas``;
   7. the bf16 recipe as trained: ``make_train_step`` with AdamW and
      WarmupPolyLR, one warm-up step then 5 counted steps on batches of two
      448x448 scenes, with launch counters (K1 = K2 = 6 per step, K3 = 0),
@@ -118,9 +121,12 @@ def trace_kernels(fn, reps: int, why_again) -> list:
     ``torch.profiler`` trace.  A trace on the H100 can lose events, and now
     and then every trace taken within a fraction of a second holds
     none, so a trace for which ``why_again(events)`` gives a reason is
-    taken again after a pause that doubles from 0.1 s."""
+    taken again after a pause that doubles from 0.1 s.  After
+    ``TRACE_TRIES`` such traces the one that kept the most events is used,
+    and said so; only traces that all hold no event fail."""
     from torch.profiler import ProfilerActivity, profile
 
+    fullest = []
     for attempt in range(TRACE_TRIES):
         if attempt:
             time.sleep(0.05 * 2 ** attempt)
@@ -133,20 +139,28 @@ def trace_kernels(fn, reps: int, why_again) -> list:
         if why is None:
             return events
         print(f"trace {attempt + 1} of at most {TRACE_TRIES} set aside: {why}")
-    raise AssertionError(f"{TRACE_TRIES} traces in a row lost device events")
+        if sum(e.count for e in events) > sum(e.count for e in fullest):
+            fullest = events
+    if not fullest:
+        raise AssertionError(f"{TRACE_TRIES} traces in a row held no device event")
+    print(f"using the fullest of {TRACE_TRIES} traces: {why_again(fullest)}")
+    return fullest
 
 
-def device_ms(fn, reps: int = 10, kernel: str = "") -> float:
+def device_ms(fn, reps: int = 10, kernel: str = "", launches: int = 0) -> float:
     """Device time per call of ``fn()``: the kernels' own time summed by
     ``torch.profiler``, host overhead excluded; with ``kernel``, only the
     kernels whose name contains it.  Each kernel's time is its mean over
     the events the trace kept times its launches per call, round(events /
-    reps); a trace that lost more than one event or a tenth of a kernel's
-    events is taken again (``trace_kernels``)."""
+    reps), or ``launches`` where the caller knows it.  A trace that lost
+    more than one of a kernel's events and more than a quarter of them
+    (a tenth where its launches per call are inferred and above one,
+    which a larger loss could round down) is taken again
+    (``trace_kernels``)."""
 
     def tally(events):
         events = [e for e in events if kernel in e.key]
-        per_call = [max(1, round(e.count / reps)) for e in events]
+        per_call = [launches or max(1, round(e.count / reps)) for e in events]
         lost = [n * reps - e.count for n, e in zip(per_call, events)]
         return events, per_call, lost
 
@@ -154,7 +168,8 @@ def device_ms(fn, reps: int = 10, kernel: str = "") -> float:
         events, per_call, lost = tally(events)
         if not events:
             return f"it holds no device event of {kernel or 'the call'}"
-        if all(0 <= k <= max(1, n * reps // 10) for n, k in zip(per_call, lost)):
+        if all(0 <= k <= max(1, n * reps // (4 if launches or n == 1 else 10))
+               for n, k in zip(per_call, lost)):
             return None
         return (f"it holds {sum(e.count for e in events)} device events of "
                 f"{kernel or 'the call'} against {sum(per_call) * reps} expected")
@@ -169,9 +184,11 @@ def device_ms(fn, reps: int = 10, kernel: str = "") -> float:
                for n, e in zip(per_call, events)) / 1e3
 
 
-def timed(name: str, kernel, twin) -> dict:
-    ms, plain = time_ms(kernel), time_ms(twin)
-    dev_ms, dev_plain = device_ms(kernel), device_ms(twin)
+def timed(name: str, run, twin, **dev_kw) -> dict:
+    """ms per call of ``run`` (a kernel's wrapper) and ``twin`` and their
+    device ms; ``dev_kw`` goes to the kernel's ``device_ms``."""
+    ms, plain = time_ms(run), time_ms(twin)
+    dev_ms, dev_plain = device_ms(run, **dev_kw), device_ms(twin)
     print(f"{name}: kernel {ms:.4f} ms/call ({dev_ms:.4f} ms device), "
           f"twin {plain:.4f} ms/call ({dev_plain:.4f} ms device)")
     return {"ms": ms, "plain_ms": plain, "device_ms": dev_ms}
@@ -273,35 +290,43 @@ def gate_msdeform(dev, inputs):
             "library_ms": None}
 
 
-def time_k1_on_model_inputs(calls) -> dict:
-    """K1 on the (value, shapes, locations, weights) of ``calls``, the six
-    encoder layers of one bf16 eval forward: ms per launch (call and
-    device) beside the twin's, and the bound on those inputs."""
-    from pctrans_torch.ops.msdeform import ms_deform_attn
-
+def time_on_model_inputs(name, kernel, twin, kernel_name, calls, tol) -> dict:
+    """``kernel`` (K1 or K5's wrapper) on the (value, shapes, locations,
+    weights) of ``calls``, the six encoder layers of one bf16 eval forward:
+    each against ``twin``, then ms per launch (call and device) beside the
+    twin's, and the bound on those inputs.  Device ms: ``kernel_name``'s
+    launches alone."""
     n = len(calls)
-    errs = [rel_fro(ms_deform_attn(*c).float(), ms_deform_attn(*c, impl="twin").float())
-            for c in calls]
-    print(f"K1 on the inputs of the bf16 eval forward's {n} encoder layers (value "
+    errs = [rel_fro(kernel(*c).float(), twin(*c).float()) for c in calls]
+    print(f"{name} on the inputs of the bf16 eval forward's {n} encoder layers (value "
           f"{calls[0][0].dtype}, locations {calls[0][2].dtype}): rel-Fro to the twin "
-          + " ".join(f"{e:.2e}" for e in errs) + " (<= 1e-2)")
-    if not max(errs) <= 1e-2:
-        raise AssertionError("K1 disagrees with its twin on the model's inputs")
-    ms = time_ms(lambda: [ms_deform_attn(*c) for c in calls]) / n
-    plain = time_ms(lambda: [ms_deform_attn(*c, impl="twin") for c in calls]) / n
-    dev_ms = device_ms(lambda: [ms_deform_attn(*c) for c in calls]) / n
-    print(f"K1 on the model's inputs, per launch: kernel {ms:.4f} ms/call "
+          + " ".join(f"{e:.2e}" for e in errs) + f" (<= {tol:g})")
+    if not max(errs) <= tol:
+        raise AssertionError(f"{name} disagrees with its twin on the model's inputs")
+    ms = time_ms(lambda: [kernel(*c) for c in calls]) / n
+    plain = time_ms(lambda: [twin(*c) for c in calls]) / n
+    dev_ms = device_ms(lambda: [kernel(*c) for c in calls], kernel=kernel_name,
+                       launches=n) / n
+    print(f"{name} on the model's inputs, per launch: kernel {ms:.4f} ms/call "
           f"({dev_ms:.4f} ms device), twin {plain:.4f} ms/call")
     work = [msdeform_work(*c) for c in calls]
-    rec = bound("K1 on the model's inputs, per launch", sum(b for b, _ in work) / n,
+    rec = bound(f"{name} on the model's inputs, per launch", sum(b for b, _ in work) / n,
                 sum(f for _, f in work) / n, dev_ms)
     return {"model_ms": ms, "model_device_ms": dev_ms, "model_plain_ms": plain,
             "model_bound_ms": rec["bound_ms"]}
 
 
+K5_BF16_TOL = 1e-4
+K5_KERNEL = "msdeform_sep_kernel"
+
+
 def check_separable(inputs) -> float:
     """K5 against its separable twin and against K1 on ``inputs``; returns
-    the largest f32 absolute difference from the twin."""
+    the largest f32 absolute difference from the twin.  In bf16 K5 and its
+    twin round hat_x to bf16 alike and sum in f32, so they differ by sum
+    order and the output's bf16 rounding (one ULP where the two f32 sums
+    straddle a rounding boundary): rel-Fro <= ``K5_BF16_TOL``.  K1 takes
+    hat_x in f32, so K5 and K1 differ by that rounding too (<= 1e-2)."""
     from pctrans_torch.ops.msdeform import (ms_deform_attn, ms_deform_attn_separable,
                                             ms_deform_attn_separable_twin)
 
@@ -312,14 +337,17 @@ def check_separable(inputs) -> float:
         torch.cuda.synchronize()
         twin = ms_deform_attn_separable_twin(v, shapes, loc, w)
         errs[name] = (rel_fro(out, twin),
-                      rel_fro(out, ms_deform_attn(v, shapes, loc, w, impl="pallas2")))
+                      rel_fro(out, ms_deform_attn(v, shapes, loc, w, impl="pallas2")),
+                      int((out != twin).sum()))
         if name == "f32":
             worst = float((out - twin).abs().max())
     print(f"K5 ms_deform_attn_separable [B={value.shape[0]}, S=Lq={value.shape[1]}, "
           f"levels {shapes}]: rel-Fro against its twin / K1: f32 {errs['f32'][0]:.3e} / "
-          f"{errs['f32'][1]:.3e} (<= 1e-5), bf16 {errs['bf16'][0]:.3e} / "
+          f"{errs['f32'][1]:.3e} (<= 1e-5), bf16 {errs['bf16'][0]:.3e} (<= "
+          f"{K5_BF16_TOL:g}; {errs['bf16'][2]} of {value.numel()} elements differ) / "
           f"{errs['bf16'][1]:.3e} (<= 1e-2)")
-    if not (max(errs["f32"]) <= 1e-5 and max(errs["bf16"]) <= 1e-2):
+    if not (max(errs["f32"][:2]) <= 1e-5 and errs["bf16"][0] <= K5_BF16_TOL
+            and errs["bf16"][1] <= 1e-2):
         raise AssertionError("K5 disagrees with its twin or with K1")
     return worst
 
@@ -336,8 +364,11 @@ def gate_separable(dev, g, inputs, k1):
         check_separable(msdeform_inputs(dev, g, batch, TRAIN_SHAPES))
     value, shapes, loc, w = inputs
     vb = value.bfloat16()
+    # traces of K5 keep about 8 of 10 launches (see device_ms): the kernel
+    # alone, at its known launch count
     times = timed("K5 bf16 value", lambda: ms_deform_attn_separable(vb, shapes, loc, w),
-                  lambda: ms_deform_attn_separable_twin(vb, shapes, loc, w))
+                  lambda: ms_deform_attn_separable_twin(vb, shapes, loc, w),
+                  kernel=K5_KERNEL, launches=1)
     print(f"K5 beside K1 on the same inputs: K5 {times['ms']:.4f} ms/call "
           f"({times['device_ms']:.4f} device), K1 {k1['ms']:.4f} ms/call "
           f"({k1['device_ms']:.4f} device), K5/K1 device {times['device_ms'] / k1['device_ms']:.1f}x")
@@ -670,7 +701,8 @@ def slice_bf16(dev, card):
     import pctrans_torch.models.pixel_decoder as pixel_decoder
     from pctrans_torch.config import CVPPP_RECIPE
     from pctrans_torch.engine.evaluator import Evaluator
-    from pctrans_torch.ops.msdeform import ms_deform_attn
+    from pctrans_torch.ops.msdeform import (ms_deform_attn, ms_deform_attn_separable,
+                                            ms_deform_attn_separable_twin)
     from pctrans_torch.ops.render import dynamic_mask_render
     from pctrans_torch.ops.resize_binarize import resize_bilinear_binarize
 
@@ -729,13 +761,30 @@ def slice_bf16(dev, card):
             raise AssertionError(f"pred_masks shape {tuple(out['pred_masks'].shape)}")
         fwd_ms = time_ms(lambda: model(x), warmup=2, reps=5)
         fwd_dev = device_ms(lambda: model(x), reps=5)
-        k1_model = time_k1_on_model_inputs(k1_calls)
+        k1_model = time_on_model_inputs(
+            "K1", ms_deform_attn, lambda *a: ms_deform_attn(*a, impl="twin"),
+            "msdeform_fwd_kernel", k1_calls, 1e-2)
+        # the same forward under PCTRANS_MSDA_IMPL=pallas: K5's inputs
+        k5_calls = []
+        pixel_decoder.ms_deform_attn = lambda *a, **k: k5_calls.append(
+            (a[0], tuple(a[1]), a[2], a[3])) or ms_deform_attn(*a, **k)
+        os.environ["PCTRANS_MSDA_IMPL"] = "pallas"
+        try:
+            model(x)
+        finally:
+            del os.environ["PCTRANS_MSDA_IMPL"]
+            pixel_decoder.ms_deform_attn = ms_deform_attn
+        if len(k5_calls) != c.enc_layers:
+            raise AssertionError(f"{len(k5_calls)} ms-deform calls in one pallas forward")
+        k5_model = time_on_model_inputs("K5", ms_deform_attn_separable,
+                                        ms_deform_attn_separable_twin, K5_KERNEL,
+                                        k5_calls, K5_BF16_TOL)
     print(f"bf16 forward {fwd_ms:.3f} ms/batch of {BATCH} (CUDA events), "
           f"{fwd_dev:.3f} ms of it device time ({1 - fwd_dev / fwd_ms:.1%} "
           f"idle); end to end {N_EVAL_BATCHES * BATCH / wall:.3f} img/s "
           f"({wall:.3f} s wall for {N_EVAL_BATCHES * BATCH} images, host "
           f"postprocess included) on {card}")
-    return launches, k1_model
+    return launches, k1_model, k5_model
 
 
 def train_f32_backward(dev):
@@ -872,6 +921,33 @@ def train_bf16(dev, card):
     return launches, time_k2_on_model_inputs(k2_calls)
 
 
+def entry_device_time(main_torch, cfg_args, opts, tmp, k5_launches, card) -> None:
+    """The same ``main_torch.py`` run again, into a fresh output directory,
+    under ``torch.profiler``: the device time of the whole run and K5's
+    share of it (kernel events the trace kept; its wall time is the
+    profiler's, not the run's)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    out = Path(tmp, "profiled")
+    opts = [str(out) if o == tmp else f"{out}/test" if o == f"{tmp}/test" else o
+            for o in opts]
+    os.environ["PCTRANS_MSDA_IMPL"] = "pallas"
+    try:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            main_torch.main(cfg_args + ["--opts", *opts])
+            torch.cuda.synchronize()
+    finally:
+        del os.environ["PCTRANS_MSDA_IMPL"]
+    events = [e for e in prof.key_averages() if e.self_device_time_total > 0]
+    total = sum(e.self_device_time_total for e in events) / 1e3
+    k5 = [e for e in events if K5_KERNEL in e.key]
+    k5_ms = sum(e.self_device_time_total for e in k5) / 1e3
+    k5_n = sum(e.count for e in k5)
+    print(f"main_torch.py under PCTRANS_MSDA_IMPL=pallas, profiled run: {total:.3f} ms of "
+          f"device time, K5 {k5_ms:.3f} ms of it in {k5_n} kernel events kept of "
+          f"{k5_launches} launches ({k5_ms / max(k5_n, 1):.4f} ms each), on {card}")
+
+
 def entry_points(card):
     """``scripts/main_torch.py`` as a user runs it, under
     ``PCTRANS_MSDA_IMPL=pallas`` (K5), then ``scripts/eval_torch.py`` over
@@ -948,6 +1024,7 @@ def entry_points(card):
         print(f"host ms per train iteration (synchronised): "
               + " ".join(f"{t:.1f}" for t in step_ms)
               + f"; main_torch.py wall {train_wall:.3f} s, on {card}")
+        entry_device_time(main_torch, cfg_args, opts, tmp, k5_train, card)
 
         for fn in counters:
             fn.launches = 0
@@ -1002,8 +1079,9 @@ def main() -> int:
              k5_gate]
     slice_f32(dev)
     train_f32_backward(dev)
-    (k1_eval, k3, k4), k1_model = slice_bf16(dev, card)
+    (k1_eval, k3, k4), k1_model, k5_model = slice_bf16(dev, card)
     k1_gate.update(k1_model)
+    k5_gate.update(k5_model)
     (k1, k2, _), k2_model = train_bf16(dev, card)
     k2_gate.update(k2_model)
     k5 = entry_points(card)

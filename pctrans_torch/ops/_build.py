@@ -39,9 +39,10 @@ _SIGNATURES = {
     # is_bf16, stream
     "pctrans_msdeform_fwd": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P,
                              _I, _P],
-    # K5, the separable form: K1's arguments
-    "pctrans_msdeform_sep_fwd": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-                                 _P, _I, _P],
+    # K5, the separable form: value, loc, weights, out, part (f32 scratch or
+    # NULL), B, S, M, D, Lq, L, P, shapes, plan (host int[]), smem bytes,
+    # is_bf16, stream
+    "pctrans_msdeform_sep_fwd": [_P] * 5 + [_I] * 7 + [_P, _P, _I, _I, _P],
     # value, loc, weights, grad, d_value, d_loc, d_weights, B, S, M, D, Lq,
     # L, P, shapes (host int[2L]), agg_mask, is_bf16, stream
     "pctrans_msdeform_bwd": [_P] * 7 + [_I] * 7 + [_P, _I, _I, _P],

@@ -9,8 +9,12 @@ per 16-byte channel group of a head, loc and w staged by cp.async) and
 head, loc and w staged by cp.async, d_value scattered with 4-channel f32
 vector reductions), and
 ``pctrans_tpu/ops/msdeform_pallas.py`` ``_level_kernel`` (K5) with
-``pctrans_torch/csrc/msdeform_separable.cu`` (the dense two-stage separable
-contraction); their headers give the bounds and the designs.
+``pctrans_torch/csrc/msdeform_separable.cu`` (the two-stage separable
+contraction, stage 1 as bf16 or 3xTF32 tensor-core products over 16-query
+tiles, tiles of zero hats skipped, the value map staged in shared memory in
+passes that :func:`separable_plan` lays out); their headers give the
+bounds and the designs.  K5 and its twin round ``hat_x`` to the value
+dtype before stage 1, as the JAX kernel does (``ROADMAP.md`` §C.10).
 :class:`MSDeformAttnFunction` joins K1 and K2 under autograd, as
 ``ms_deform_attn_core_pallas2``'s custom VJP does;
 :class:`MSDeformAttnSeparableFunction` joins K5 and K2 (the JAX package
@@ -104,8 +108,12 @@ def ms_deform_attn_separable_twin(value: torch.Tensor,
     """Plain PyTorch version of K5 (``ms_deform_attn_core_separable``,
     ``pctrans_tpu/ops/msdeform.py:193-270``): per level and chunk of
     ``SEPARABLE_CHUNK`` queries, stage 1 ``t = hat_x @ V^T`` over the W
-    axis, stage 2 ``sum_h hat_y * w * t``.  Hats and sums in f32;
-    differentiable."""
+    axis, stage 2 ``sum_h hat_y * w * t``.  ``hat_x`` is rounded to the
+    value dtype before stage 1, as the JAX kernel's ``hx.astype(v.dtype)``
+    (``msdeform_pallas.py:101``) and the XLA separable form do; the
+    products, ``hat_y * w`` and every sum stay in f32 (for f32 values the
+    rounding is the identity).  Differentiable; the rounding passes the
+    gradient through unchanged (``ROADMAP.md`` §C.10)."""
     B, S, M, D = value.shape
     _, Lq, _, L, P, _ = sampling_locations.shape
     with torch.autocast(value.device.type, enabled=False):
@@ -127,6 +135,7 @@ def ms_deform_attn_separable_twin(value: torch.Tensor,
                 y = loc[:, :, q, lid, :, 1] * H - 0.5
                 c = x.shape[2]
                 hx = torch.relu(1.0 - torch.abs(x[..., None] - sx))  # [B, M, c, P, W]
+                hx = hx.to(value.dtype).float()      # JAX's hx.astype(v.dtype)
                 t = torch.matmul(hx.reshape(B, M, c * P, W), vT)
                 t = t.reshape(B, M, c, P, H, D)
                 hy = torch.relu(1.0 - torch.abs(y[..., None] - sy))
@@ -220,24 +229,90 @@ def _launch_forward(value, spatial_shapes, loc, w) -> torch.Tensor:
     return out
 
 
+# shared memory an H100 block may take, less K5's static tile counter
+SEPARABLE_SMEM_BYTES = 232_448 - 16
+SEPARABLE_MAX_PASSES = 16
+SEPARABLE_MAX_SEGMENTS = 32
+
+
+def separable_row_stride(W: int, element_size: int) -> int:
+    """Elements of one staged (h, d) row of K5's slab: W rounded up to whole
+    16-column K tiles, plus 8 bf16 or 4 f32 (4 words: the fragment reads of
+    a warp then hit 32 banks)."""
+    return 16 * -(-W // 16) + (8 if element_size == 2 else 4)
+
+
+def separable_plan(spatial_shapes: Sequence[Tuple[int, int]], D: int,
+                   element_size: int, budget: int = SEPARABLE_SMEM_BYTES):
+    """K5's passes over the value map (``msdeform_separable.cu``): a list of
+    passes, each a list of segments ``(level, h0, h1, offset)`` that stage
+    rows ``[h0, h1)`` of a level at element ``offset`` of the shared slab.
+    Rows fill each pass in level order up to ``budget`` bytes; a level that
+    does not fit the rest of a pass is split there.  Raises ``ValueError``
+    when one row does not fit or the plan outgrows the kernel's tables."""
+    passes, segs, used = [], [], 0
+    for lid, (H, W) in enumerate(spatial_shapes):
+        row = D * separable_row_stride(W, element_size) * element_size
+        if row > budget:
+            raise ValueError(f"ms_deform_attn_separable: one staged row of level "
+                             f"{lid} (W = {W}, D = {D}) takes {row} bytes of shared "
+                             f"memory, more than the kernel's {budget}")
+        h = 0
+        while h < H:
+            take = min((budget - used) // row, H - h)
+            if take == 0:
+                passes.append(segs)
+                segs, used = [], 0
+                continue
+            segs.append((lid, h, h + take, used // element_size))
+            used += take * row
+            h += take
+    passes.append(segs)
+    if (len(passes) > SEPARABLE_MAX_PASSES
+            or sum(map(len, passes)) > SEPARABLE_MAX_SEGMENTS):
+        raise ValueError(f"ms_deform_attn_separable: the value map needs {len(passes)} "
+                         f"passes of {sum(map(len, passes))} row bands, more than the "
+                         f"kernel's {SEPARABLE_MAX_PASSES} and {SEPARABLE_MAX_SEGMENTS}")
+    return passes
+
+
+def _check_separable_layout(value, spatial_shapes, loc, w):
+    """What K5 takes (``msdeform_separable.cu``): D in whole n8 tensor-core
+    tiles (8, 16 or 32), 16-byte aligned tensors, a value map that
+    :func:`separable_plan` can stage.  Returns the plan."""
+    D = value.shape[3]
+    if D not in (8, 16, 32):
+        raise ValueError(f"ms_deform_attn_separable: the kernel's products take a "
+                         f"head's channels in n8 tiles, D must be 8, 16 or 32, got {D}")
+    if any(t.data_ptr() % 16 for t in (value, loc, w)):
+        raise ValueError("ms_deform_attn_separable: the kernel needs 16-byte aligned "
+                         "value, locations and weights")
+    return separable_plan(spatial_shapes, D, value.element_size())
+
+
 def _launch_separable(value, spatial_shapes, loc, w) -> torch.Tensor:
     """One K5 launch on contiguous CUDA tensors that need no grad."""
     B, S, M, D = value.shape
     _, Lq, _, L, P, _ = loc.shape
     _check_kernel_inputs("ms_deform_attn_separable", value, loc, w)
-    if D not in (4, 8, 16, 32):
-        raise ValueError(f"ms_deform_attn_separable: the kernel keeps a head's "
-                         f"channels in registers as float4, D must be 4, 8, "
-                         f"16 or 32, got {D}")
-    widest = max(W for _, W in spatial_shapes)
-    if widest * D > 8192:
-        raise ValueError(f"ms_deform_attn_separable: a staged value row of "
-                         f"W*D = {widest * D} floats exceeds the kernel's 8192")
+    passes = _check_separable_layout(value, spatial_shapes, loc, w)
     out = torch.empty((B, Lq, M * D), dtype=value.dtype, device=value.device)
+    part = None
+    if len(passes) > 1 and value.dtype == torch.bfloat16:
+        part = torch.empty((B, Lq, M * D), dtype=torch.float32, device=value.device)
+    first = [0]
+    for segs in passes:
+        first.append(first[-1] + len(segs))
+    flat = [len(passes), *first, *(v for segs in passes for seg in segs for v in seg)]
+    plan = ctypes.cast((ctypes.c_int * len(flat))(*flat), ctypes.c_void_p)
+    smem = max(sum((h1 - h0) * D * separable_row_stride(spatial_shapes[lid][1],
+                                                         value.element_size())
+                   for lid, h0, h1, _ in segs) for segs in passes) * value.element_size()
     lib = _build.load_kernels()
     rc = lib.pctrans_msdeform_sep_fwd(
         value.data_ptr(), loc.data_ptr(), w.data_ptr(), out.data_ptr(),
-        B, S, M, D, Lq, L, P, _shapes_arg(spatial_shapes),
+        None if part is None else part.data_ptr(),
+        B, S, M, D, Lq, L, P, _shapes_arg(spatial_shapes), plan, smem,
         int(value.dtype == torch.bfloat16), _build.stream_of(value))
     _build.check(lib, rc, "ms_deform_attn_separable")
     ms_deform_attn_separable.launches += 1

@@ -1,6 +1,6 @@
-"""Time K1 (ms-deform forward), K2 (ms-deform backward), K3 (mask render)
-and K4 (upsample+binarize) of two checkouts of the PyTorch port in turns on
-one CUDA card.
+"""Time K1 (ms-deform forward), K2 (ms-deform backward), K3 (mask render),
+K4 (upsample+binarize) and K5 (separable ms-deform forward) of two
+checkouts of the PyTorch port in turns on one CUDA card.
 
     python3 -m pctrans_torch.ops.time_kernels OLD_TREE [NEW_TREE]
 
@@ -8,16 +8,18 @@ NEW_TREE defaults to this checkout.  The turns run old, new, new, old, each
 in its own process, which imports ``pctrans_torch`` from its tree (building
 that tree's kernels into the tree's own ``build/`` at first use) and times
 the kernels through the public wrappers on ``chip_smoke.py``'s inputs, made
-from the same seed in every turn: K1 and K3 at the eval shapes, K2 alone
-(``ms_deform_attn_backward``) on the K2 gate's train-shape inputs and on
-its contention case, K4 at [4, 50, 133, 125] and [4, 100, 133, 125] ->
-530x500.  Call ms from CUDA
-events, device ms from the profiler (``chip_smoke.time_ms`` and
-``chip_smoke.device_ms`` of this checkout), and for K2 also the kernel's own
-device ms.  Prints the card, one line per turn and kernel, then old against
-new: the rel-Fro of K1's and K3's outputs and of K2's d_value, d_loc and
-d_w, and K4's differing bytes with the largest distance of their f32
-logits from the threshold.  Exits non-zero without a card.
+from the same seed in every turn: K1, K5 and K3 at the eval shapes (K1 and
+K5 on the bf16 value), K2 alone (``ms_deform_attn_backward``) on the K2
+gate's train-shape inputs and on its contention case, K4 at [4, 50, 133,
+125] and [4, 100, 133, 125] -> 530x500.  Call ms from CUDA events, device
+ms from the profiler (``chip_smoke.time_ms`` and ``chip_smoke.device_ms``
+of this checkout; for K5 its own kernel's events), and for K2 also the
+kernel's own device ms.  Prints the card, one line per turn and kernel,
+then old against new: the rel-Fro of K1's, K5's and K3's outputs and of
+K2's d_value, d_loc and d_w, K5's separable twin's beside K5's (the twin
+rounds hat_x as the kernel does since the bf16 repair), and K4's
+differing bytes with the largest distance of their f32 logits from the
+threshold.  Exits non-zero without a card.
 """
 
 from __future__ import annotations
@@ -48,7 +50,9 @@ def load_smoke():
 def one_turn(tree: Path, out: Path) -> None:
     sys.path[0] = str(tree)          # in place of this file's directory
     import pctrans_torch
-    from pctrans_torch.ops.msdeform import ms_deform_attn, ms_deform_attn_backward
+    from pctrans_torch.ops.msdeform import (ms_deform_attn, ms_deform_attn_backward,
+                                            ms_deform_attn_separable,
+                                            ms_deform_attn_separable_twin)
     from pctrans_torch.ops.render import dynamic_mask_render
     from pctrans_torch.ops.resize_binarize import resize_bilinear_binarize
 
@@ -70,8 +74,11 @@ def one_turn(tree: Path, out: Path) -> None:
              "K2 contention": lambda: ms_deform_attn_backward(v2, shapes2, loc_c, w2, gout2),
              "K3": lambda: dynamic_mask_render(*render_args),
              "K4 K=50": lambda: resize_bilinear_binarize(xs[50], smoke.IMAGE_HW, t),
-             "K4 K=100": lambda: resize_bilinear_binarize(xs[100], smoke.IMAGE_HW, t)}
-    rec = {name: {"ms": smoke.time_ms(fn), "device_ms": smoke.device_ms(fn)}
+             "K4 K=100": lambda: resize_bilinear_binarize(xs[100], smoke.IMAGE_HW, t),
+             "K5": lambda: ms_deform_attn_separable(vb, shapes, loc, w)}
+    dev_kw = {"K5": {"kernel": smoke.K5_KERNEL, "launches": 1}}
+    rec = {name: {"ms": smoke.time_ms(fn),
+                  "device_ms": smoke.device_ms(fn, **dev_kw.get(name, {}))}
            for name, fn in calls.items()}
     for name in ("K2", "K2 contention"):
         rec[name]["kernel_device_ms"] = smoke.device_ms(calls[name], kernel="msdeform_bwd_kernel")
@@ -80,6 +87,7 @@ def one_turn(tree: Path, out: Path) -> None:
         res = fn()
         outs[name] = [r.cpu() for r in (res if isinstance(res, tuple) else (res,))]
     outs["K4 inputs"] = {K: x.cpu() for K, x in xs.items()}
+    outs["K5 twin"] = [ms_deform_attn_separable_twin(vb, shapes, loc, w).cpu()]
     torch.save(outs, out)
     print(json.dumps(rec))
 
@@ -89,7 +97,7 @@ def compare(old: dict, new: dict, image_hw) -> None:
     from pctrans_torch.ops.resize import resize_bilinear
 
     smoke = load_smoke()
-    for name in ("K1", "K2", "K2 contention", "K3"):
+    for name in ("K1", "K2", "K2 contention", "K3", "K5", "K5 twin"):
         errs = " ".join(f"{smoke.rel_fro(b.float(), a.float()):.3e}"
                         for a, b in zip(old[name], new[name]))
         what = "d_value, d_loc, d_w" if name.startswith("K2") else "output"

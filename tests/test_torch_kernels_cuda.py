@@ -232,18 +232,37 @@ def test_msdeform_backward_kernel_matches_twin_autograd(dev, M, D, Lq, shapes,
     (8, 16, 37, [(5, 7), (3, 4), (9, 2)]),
     (4, 8, 1, [(6, 5)]),
     (2, 32, 300, [(11, 13), (6, 7)]),
-    (3, 4, 129, [(40, 70), (2, 3)]),         # several staging passes per level
+    (3, 8, 129, [(40, 70), (2, 3)]),         # 5 K tiles; several passes in f32
+    (2, 32, 70, [(90, 100), (3, 5)]),        # several passes in both dtypes
+    (8, 16, 1001, [(17, 16), (34, 32), (67, 63)]),   # the eval levels, one bf16 pass
 ])
-@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
-                                       (torch.bfloat16, 1e-2)])
-def test_separable_kernel_matches_both_twins(dev, M, D, Lq, shapes, dtype, tol):
-    """K5 against its separable twin and the 4-corner twin, with samples
-    outside the map and Lq not a multiple of the block's 128 queries."""
+@pytest.mark.parametrize("dtype,tol,corner_tol", [(torch.float32, 1e-5, 1e-5),
+                                                  (torch.bfloat16, 1e-4, 1e-2)])
+@pytest.mark.parametrize("samples", ["mixed", "nan", "shared_corner"])
+def test_separable_kernel_matches_both_twins(dev, M, D, Lq, shapes, dtype, tol,
+                                             corner_tol, samples):
+    """K5 against its separable twin (bf16: both round hat_x alike, so only
+    sum order and the output's rounding differ) and the 4-corner twin (bf16:
+    it takes hat_x in f32), with samples outside the map and Lq not a
+    multiple of the 16-query tile.  ``nan``: a third of the samples NaN
+    (zero in K5 and the 4-corner twin); ``shared_corner``: every query of a
+    head samples the same 2x2 cells of the first level, as neighbouring
+    queries of the model do."""
     g = torch.Generator(device=dev).manual_seed(4)
     B, L, P = 2, len(shapes), 3
     S = sum(h * w for h, w in shapes)
     value = torch.randn(B, S, M, D, device=dev, generator=g).to(dtype)
     loc = torch.rand(B, Lq, M, L, P, 2, device=dev, generator=g) * 1.4 - 0.2
+    if samples == "nan":
+        loc = loc.masked_fill(torch.rand(loc.shape, device=dev, generator=g) < 1 / 3,
+                              float("nan"))
+    elif samples == "shared_corner":
+        H, W = shapes[0]
+        size = torch.tensor([W, H], dtype=torch.float32, device=dev)
+        corner = torch.randint(0, max(1, min(H, W) - 1), (B, 1, M, 1, 2), device=dev,
+                               generator=g)
+        frac = torch.rand(B, Lq, M, P, 2, device=dev, generator=g)
+        loc[:, :, :, 0] = (corner + frac + 0.5) / size
     w = torch.rand(B, Lq, M, L, P, device=dev, generator=g)
     before = (ms_deform_attn.launches, ms_deform_attn_separable.launches)
     out = ms_deform_attn(value, shapes, loc, w, impl="pallas")
@@ -251,8 +270,11 @@ def test_separable_kernel_matches_both_twins(dev, M, D, Lq, shapes, dtype, tol):
     assert (ms_deform_attn.launches, ms_deform_attn_separable.launches) == \
         (before[0], before[1] + 1)
     assert out.dtype == dtype and out.shape == (B, Lq, M * D)
-    assert _rel(out, ms_deform_attn_separable_twin(value, shapes, loc, w)) <= tol
-    assert _rel(out, ms_deform_attn(value, shapes, loc, w, impl="twin")) <= tol
+    assert bool(out.isfinite().all())
+    corner = ms_deform_attn(value, shapes, loc, w, impl="twin")
+    assert _rel(out, corner) <= corner_tol
+    if samples != "nan":                     # the separable twin gives NaN there
+        assert _rel(out, ms_deform_attn_separable_twin(value, shapes, loc, w)) <= tol
 
 
 @pytest.mark.parametrize("on_grid", [False, True])
@@ -286,13 +308,17 @@ def test_separable_function_backward_is_k2(dev, on_grid):
 
 
 def test_separable_kernel_refuses_what_it_cannot_stage(dev):
+    """K5 takes a head's channels in n8 tensor-core tiles and stages whole
+    rows of a level in shared memory: D = 4 or 6, or a row wider than the
+    block's shared memory, raises; nothing falls back to the twin."""
     loc = torch.rand(1, 5, 2, 1, 2, 2, device=dev)
     w = torch.rand(1, 5, 2, 1, 2, device=dev)
-    with pytest.raises(ValueError, match="D must be"):
-        ms_deform_attn_separable(torch.randn(1, 6, 2, 6, device=dev), [(2, 3)], loc, w)
-    with pytest.raises(ValueError, match="8192"):
-        ms_deform_attn_separable(torch.randn(1, 2 * 600, 2, 16, device=dev),
-                                 [(2, 600)], loc, w)
+    for D in (4, 6):
+        with pytest.raises(ValueError, match="D must be"):
+            ms_deform_attn_separable(torch.randn(1, 6, 2, D, device=dev), [(2, 3)], loc, w)
+    with pytest.raises(ValueError, match="shared memory"):
+        ms_deform_attn_separable(torch.randn(1, 2 * 2000, 2, 32, device=dev),
+                                 [(2, 2000)], loc, w)
 
 
 def _backward_grads(value, shapes, loc, w, gout, impl):
