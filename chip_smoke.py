@@ -1,4 +1,5 @@
-"""On-card smoke run of the PyTorch/CUDA port's CVPPP eval and train paths.
+"""On-card smoke run of the PyTorch/CUDA port's CVPPP and BBBC eval and train
+paths.
 
     python3 chip_smoke.py        # one CUDA card; exits non-zero on any failure
 
@@ -13,7 +14,8 @@ Phases:
      backward) at the train shapes with a share of samples on integral
      pixel coordinates and on a contention case (every query of a head in
      the same 2x2 cells of the 14x14 level), K3 (mask render) and K4
-     (upsample+binarize, at K=50 and K=100 masks) against their plain
+     (upsample+binarize, at K=50 and K=100 masks of the CVPPP eval and at
+     the BBBC eval's [2, 300, 130, 174] -> 520x696) against their plain
      PyTorch twins on the card (K5 in bf16 at rel-Fro 1e-4: it rounds
      hat_x as its twin does), then each one's time beside its twin's (K2
      alone, also on the contention case, and K1 also at the train shapes;
@@ -24,11 +26,24 @@ Phases:
   5. the f32 train backward of the recipe (SyncBN heads in train mode) on
      two synthetic 448x448 scenes: the pixel decoder's gradients of
      loss_emb + loss_sem through K1/K2 against the twin's;
-  6. the bf16 recipe as served: the evaluator over three batches of four
-     scenes, with launch counters showing the kernels ran, then K1 gated
-     and timed on the value, locations and weights one bf16 forward gives
-     it, and K5 on those of one bf16 forward under
-     ``PCTRANS_MSDA_IMPL=pallas``;
+  6. the bf16 CVPPP recipe as served: the evaluator, which labels through
+     the device postprocess, over three batches of four scenes, with launch
+     counters showing the kernels ran (K1 = 6, K3 = 10, K4 = 1 per forward)
+     and the end-to-end img/s; batch 0's label maps equal to the numpy
+     oracle's on the same u8 masks; the device postprocess's ms per batch
+     beside the oracle's; the host fetches of one ``predict_labels`` (the
+     statistics and the label map, no mask stack); then K1 gated and timed
+     on the value, locations and weights one bf16 forward gives it, and K5
+     on those of one bf16 forward under ``PCTRANS_MSDA_IMPL=pallas``;
+  6b. the bf16 BBBC recipe as served (``BBBC_RECIPE``: Q=300, TOP_K 160,
+     threshold 0.05): ``Evaluator(dataset="bbbc")`` over three batches of
+     two 520x696 nuclei scenes (50-148 nuclei of radius 10-22 px) through
+     ``test_bbbc``, with the same launch counts, AJI/F1/detF1/PQ finite,
+     batch 0's label maps equal to ``instance_inference_bbbc``'s (on a
+     difference, the clusters whose fractional areas order otherwise in f32
+     are printed), the device postprocess's ms per batch, and the forward's
+     ms, device ms and idle share; random weights make every batch re-run
+     at full Q (K=300);
   7. the bf16 recipe as trained: ``make_train_step`` with AdamW and
      WarmupPolyLR, one warm-up step then 5 counted steps on batches of two
      448x448 scenes, with launch counters (K1 = K2 = 6 per step, K3 = 0),
@@ -39,7 +54,12 @@ Phases:
      2, checkpoints at 2 and 4, validation at 4) under
      ``PCTRANS_MSDA_IMPL=pallas`` (K5 = 6 per forward, K1 = 0, K2 = 6 per
      step), then ``scripts/eval_torch.py`` sweeping the two checkpoints
-     under the default dispatch (K1 = 6, K3 = 10, K4 = 1 per forward);
+     under the default dispatch (K1 = 6, K3 = 10, K4 = 1 per forward); then
+     ``main_torch.py`` with the two BBBC YAMLs on ``synthetic_bbbc`` (2
+     bf16 iterations at 512x512 batch 2, MAX_INSTANCES 128, a checkpoint
+     and a validation at 2 that runs ``test_bbbc``, writes AJI to
+     ``logging.txt`` and keeps ``checkpoint_best``; K1 = K2 = 6 per step)
+     and ``eval_torch.py --name bbbc`` over that checkpoint;
   9. one JSON line of kernel results (each with its bound on the card and,
      where one PyTorch call computes the same function, that call's time),
      then the final status line.
@@ -75,6 +95,10 @@ N_TRAIN_STEPS = 5              # counted, after one warm-up step
 SEED = 0                       # of the weights, the scenes and the gates' inputs
 REPO = Path(__file__).resolve().parent
 ENTRY_ITERS = 4                # iterations of the entry-point run
+BBBC_BATCH = 2                 # INFERENCE.SAMPLES_PER_BATCH of the BBBC recipe
+BBBC_HW = (520, 696)           # a BBBC039 image
+BBBC_TOP_K = 160               # INFERENCE.TOP_K of the BBBC recipe
+BBBC_ENTRY_ITERS = 2           # iterations of the BBBC entry-point run
 # H100 SXM peaks (NVIDIA data sheet) for the bounds: HBM bytes per second,
 # f32 FLOP/s outside the tensor cores, dense TF32 FLOP/s on the tensor cores
 PEAK_BYTES_PER_S = 3.35e12
@@ -226,12 +250,14 @@ def msdeform_samples_inside(shapes, loc) -> int:
     return n
 
 
-def scene_batches(n_batches: int, seed: int, batch: int = BATCH, hw=IMAGE_HW):
+def scene_batches(n_batches: int, seed: int, batch: int = BATCH, hw=IMAGE_HW, **scene):
+    """Batches of synthetic scenes; ``scene`` goes to ``make_blob_image``
+    (the instance count and radii of nuclei scenes)."""
     from pctrans_torch.data.synthetic import make_blob_image
 
     rng = np.random.RandomState(seed)
     for _ in range(n_batches):
-        items = [make_blob_image(rng, hw) for _ in range(batch)]
+        items = [make_blob_image(rng, hw, **scene) for _ in range(batch)]
         yield {"image": np.stack([i for i, _ in items]),
                "label": np.stack([l for _, l in items])}
 
@@ -585,52 +611,53 @@ def gate_render(dev, g):
             "bound_ms_f32_cuda_cores": f32["bound_ms"], "library_ms": None}
 
 
-def resize_inputs(dev, g, K):
-    """K4's logits at the eval shape: [4, K, 133, 125] f32 (K=50 top-k, K=100
-    the full-Q re-run), upsampled to 530x500."""
-    return torch.randn(BATCH, K, 133, 125, device=dev, generator=g) * 3.0
+# K4's cases: (key prefix, batch, masks, output size, threshold): the CVPPP
+# eval's top-50 and full-Q re-run at 530x500, the BBBC eval's full-Q re-run
+# (Q=300) at 520x696
+K4_CASES = [("", BATCH, 50, IMAGE_HW, 0.69), ("k100_", BATCH, 100, IMAGE_HW, 0.69),
+            ("bbbc_k300_", BBBC_BATCH, 300, BBBC_HW, 0.05)]
 
 
 def gate_resize_binarize(dev, g):
-    """K4 against its twin at K=50 and K=100: at most 1e-4 of the bits
-    flipped, each within 1e-4 of the threshold; then each timed beside the
-    twin and the two-call PyTorch yardstick.  One record, K=100 under
-    ``k100_*`` keys."""
+    """K4 against its twin on the stride-4 logits [B, K, h, w] of each case
+    in ``K4_CASES``: at most 1e-4 of the bits flipped, each within 1e-4 of
+    the threshold; then each timed beside the twin and the two-call PyTorch
+    yardstick.  One record, the later cases under their key prefixes."""
     from pctrans_torch.ops.resize import resize_bilinear
     from pctrans_torch.ops.resize_binarize import resize_bilinear_binarize
 
-    logit_t = math.log(0.69 / 0.31)
     rec = {}
-    for K in (50, 100):
-        x = resize_inputs(dev, g, K)
-        out = resize_bilinear_binarize(x, IMAGE_HW, logit_t)
+    for prefix, B, K, hw, t in K4_CASES:
+        logit_t = math.log(t / (1 - t))
+        x = torch.randn(B, K, *stage_sizes(hw)[0], device=dev, generator=g) * 3.0
+        out = resize_bilinear_binarize(x, hw, logit_t)
         torch.cuda.synchronize()
-        twin = resize_bilinear_binarize(x, IMAGE_HW, logit_t, impl="twin")
-        logits = resize_bilinear(x, IMAGE_HW)
+        twin = resize_bilinear_binarize(x, hw, logit_t, impl="twin")
+        logits = resize_bilinear(x, hw)
         flips = out != twin
         n_flips = int(flips.sum())
         worst = float((logits[flips] - logit_t).abs().max()) if n_flips else 0.0
         frac = n_flips / out.numel()
-        print(f"K4 resize_bilinear_binarize [B={BATCH}, K={K}, {tuple(x.shape[2:])} -> "
-              f"{IMAGE_HW}]: {n_flips} flipped of {out.numel()} ({frac:.2e}; <= 1e-4), "
+        name = f"K4 [B={B}, K={K}, {tuple(x.shape[2:])} -> {hw}, t={t}]"
+        print(f"{name}: {n_flips} flipped of {out.numel()} ({frac:.2e}; <= 1e-4), "
               f"largest |logit - t| at a flip {worst:.3e} (<= 1e-4)")
         if not (frac <= 1e-4 and worst <= 1e-4):
-            raise AssertionError(f"K4 disagrees with its twin at K={K}")
+            raise AssertionError(f"{name} disagrees with its twin")
         del logits
-        times = timed(f"K4 at K={K}", lambda: resize_bilinear_binarize(x, IMAGE_HW, logit_t),
-                      lambda: resize_bilinear_binarize(x, IMAGE_HW, logit_t, impl="twin"))
+        times = timed(name, lambda: resize_bilinear_binarize(x, hw, logit_t),
+                      lambda: resize_bilinear_binarize(x, hw, logit_t, impl="twin"))
         # yardstick of two PyTorch calls (no single call binarizes): upsample
         # with F.interpolate, then compare
         library = time_ms(lambda: torch.nn.functional.interpolate(
-            x, IMAGE_HW, mode="bilinear", align_corners=False) > logit_t)
-        print(f"K4 yardstick at K={K}, F.interpolate(bilinear) > t: {library:.4f} ms/call")
+            x, hw, mode="bilinear", align_corners=False) > logit_t)
+        print(f"{name} yardstick, F.interpolate(bilinear) > t: {library:.4f} ms/call")
         # two lerps along each axis and a compare, ~10 FLOP per output pixel
         r = {"max_abs_err": float((out.int() - twin.int()).abs().max()), **times,
-             **bound(f"K4 at K={K}", nbytes(x, out), 10 * out.numel(),
-                     times["device_ms"]),
+             **bound(name, nbytes(x, out), 10 * out.numel(), times["device_ms"]),
              "library_ms": library}
-        rec.update(r if K == 50 else {f"k100_{k}": v for k, v in r.items()
-                                      if k != "bound_by"})
+        rec.update({f"{prefix}{k}": v for k, v in r.items()
+                    if not (prefix and k == "bound_by")})
+        del x, out, twin
     return rec
 
 
@@ -697,48 +724,163 @@ def slice_f32(dev):
                              "> 1e-3 before the first attention-mask flip")
 
 
-def slice_bf16(dev, card):
-    import pctrans_torch.models.pixel_decoder as pixel_decoder
-    from pctrans_torch.config import CVPPP_RECIPE
-    from pctrans_torch.engine.evaluator import Evaluator
-    from pctrans_torch.ops.msdeform import (ms_deform_attn, ms_deform_attn_separable,
-                                            ms_deform_attn_separable_twin)
+def host_fetches(fn):
+    """``fn()`` and the (shape, bytes) of every CUDA tensor it copied to the
+    host through ``Tensor.cpu``, the evaluator's one way to fetch."""
+    fetched = []
+    cpu = torch.Tensor.cpu
+
+    def record(t, *args, **kwargs):
+        if t.is_cuda:
+            fetched.append((tuple(t.shape), t.numel() * t.element_size()))
+        return cpu(t, *args, **kwargs)
+
+    torch.Tensor.cpu = record
+    try:
+        return fn(), fetched
+    finally:
+        torch.Tensor.cpu = cpu
+
+
+def bbbc_exact_order_oracle(masks):
+    """``instance_inference_bbbc`` on one image's u8 masks [K, H, W] with the
+    device postprocess's paint order: clusters sorted by their exact
+    rational area (the sum of member areas over n, in f64) where the numpy
+    oracle sorts the f32 sums of the merged masks' H*W values, the one
+    documented difference (``device_postprocess.py``).  Returns (label map,
+    the cluster pairs (i, j, exact_i, exact_j, f32_i, f32_j) that the two
+    keys order otherwise)."""
+    from pctrans_torch.inference.postprocess import clusters_from_dice, pairwise_dice_binary
+
+    pred = masks.astype(np.float32)
+    areas = pred.reshape(len(pred), -1).sum(axis=1)
+    pred, areas = pred[areas > 40], areas[areas > 40]
+    if not len(pred):
+        return np.zeros(masks.shape[1:], np.int16), []
+    clusters = clusters_from_dice(pairwise_dice_binary(pred), 0.15)
+    merged = np.stack([pred[m].mean(axis=0) for m in clusters])
+    exact = np.array([areas[m].astype(np.float64).sum() / len(m) for m in clusters])
+    f32 = merged.reshape(len(merged), -1).sum(axis=1)
+    stack = np.concatenate([np.zeros((1,) + merged.shape[1:], merged.dtype),
+                            merged[np.argsort(exact, kind="stable")]])
+    swaps = [(i, j, exact[i], exact[j], f32[i], f32[j])
+             for i in range(len(clusters)) for j in range(i + 1, len(clusters))
+             if np.sign(exact[i] - exact[j]) != np.sign(f32[i] - f32[j])]
+    return np.argmax(stack, axis=0).astype(np.int16), swaps
+
+
+def check_labels(name, ev, batches, oracle) -> dict:
+    """The device postprocess against the numpy ``oracle`` on batch 0's u8
+    masks (label maps equal, or fail; for BBBC, where the paint order is the
+    one documented difference, equal to ``bbbc_exact_order_oracle`` and the
+    pixels that differ from the oracle explained by the pairs of clusters
+    whose two area keys order otherwise), its ms per batch (the host-fetched
+    statistics to the label map on the host) over every batch, and the
+    host fetches of one ``predict_labels``: the statistics and the label
+    map, never the mask stack."""
+    post_ms = []
+    for i, batch in enumerate(batches):
+        masks, stats = ev.masks_and_stats(batch["image"])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        labels = ev.label_masks(masks, stats)
+        post_ms.append((time.perf_counter() - t0) * 1e3)
+        if i:
+            continue
+        host = masks.cpu().numpy()
+        t0 = time.perf_counter()
+        ref = np.stack([oracle(m.astype(np.float32), ev.threshold) for m in host])
+        oracle_ms = (time.perf_counter() - t0) * 1e3
+        differ = [int((a != b).sum()) for a, b in zip(labels, ref)]
+        print(f"{name}: batch 0's label maps (masks {tuple(host.shape)}) against the numpy "
+              f"oracle: pixels that differ per image {differ}; instances per image "
+              + " ".join(str(int(l.max())) for l in labels))
+        if ev.postprocessor.dataset == "bbbc":
+            for b, (lab, m) in enumerate(zip(labels, host)):
+                exact, swaps = bbbc_exact_order_oracle(m)
+                n_exact = int((lab != exact).sum())
+                print(f"{name} image {b}: {n_exact} pixels differ from the oracle with the "
+                      f"exact-area paint order; {len(swaps)} cluster pairs order otherwise "
+                      "by the exact area than by numpy's f32 sum (i, j, exact, exact, f32, "
+                      f"f32): {swaps}")
+                if n_exact or (differ[b] and not swaps):
+                    raise AssertionError(f"{name}: the device postprocess's labels differ "
+                                         "from the numpy oracle's beyond the paint order")
+        elif any(differ):
+            raise AssertionError(f"{name}: the device postprocess's labels differ "
+                                 "from the numpy oracle's")
+    labels, fetched = host_fetches(lambda: ev.predict_labels(batches[0]["image"]))
+    mask_bytes = host.size
+    print(f"{name}: host fetches of one predict_labels: "
+          + ", ".join(f"{shape} ({n} B)" for shape, n in fetched)
+          + f"; {sum(n for _, n in fetched)} B in all, against {mask_bytes} B of u8 masks")
+    if any(len(shape) == 4 for shape, _ in fetched):
+        raise AssertionError(f"{name}: predict_labels fetched a mask stack")
+    print(f"{name}: device postprocess {statistics.mean(post_ms):.3f} ms per batch (host-fetched "
+          "statistics to the label map on the host; per batch "
+          + " ".join(f"{t:.2f}" for t in post_ms)
+          + f"), numpy oracle {oracle_ms:.1f} ms on batch 0")
+    return {"post_ms": post_ms, "oracle_ms": oracle_ms}
+
+
+def eval_run(name, ev, batches, score, layers):
+    """``score(batches)`` (the evaluator's protocol) with the launch
+    counters set to 0 just before and read just after: K1, K3 and K4 must
+    run ``layers`` = (encoder layers, decoder layers + 1, 1) times per
+    forward, re-runs included.  Returns (launches, forwards, wall s,
+    metrics)."""
+    from pctrans_torch.ops.msdeform import ms_deform_attn
     from pctrans_torch.ops.render import dynamic_mask_render
     from pctrans_torch.ops.resize_binarize import resize_bilinear_binarize
 
-    model = build_model(CVPPP_RECIPE, dev)
-    ev = Evaluator(model, top_k=50)
-    batches = list(scene_batches(N_EVAL_BATCHES, SEED + 1))
     ev.predict_labels(batches[0]["image"])            # warm-up, not counted
     torch.cuda.synchronize()
-
     counters = (ms_deform_attn, dynamic_mask_render, resize_bilinear_binarize)
     for fn in counters:
         fn.launches = 0
     ev.forwards = 0
     t0 = time.perf_counter()
-    res = ev.eval_cvppp(batches)
+    res = score(batches)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = [fn.launches for fn in counters]
     fwd = ev.forwards
-    print(f"bf16 eval over {N_EVAL_BATCHES} batches of {BATCH}: {fwd} forwards "
-          f"(full-Q re-runs included); launches K1 {launches[0]}, "
-          f"K3 {launches[1]}, K4 {launches[2]}")
-    c = CVPPP_RECIPE
-    if fwd < N_EVAL_BATCHES or launches != [c.enc_layers * fwd,
-                                            (c.dec_layers + 1) * fwd, fwd]:
-        raise AssertionError("launch counts do not match the forwards run")
+    n_img = sum(b["image"].shape[0] for b in batches)
+    print(f"{name} over {len(batches)} batches: {fwd} forwards ({fwd - len(batches)} "
+          f"full-Q re-runs); launches K1 {launches[0]}, K3 {launches[1]}, K4 {launches[2]}; "
+          f"end to end {n_img / wall:.3f} img/s ({wall:.3f} s wall for {n_img} images)")
+    if fwd < len(batches) or launches != [n * fwd for n in layers]:
+        raise AssertionError(f"{name}: launch counts do not match the forwards run")
     if not all(math.isfinite(v) for v in res.values()):
-        raise AssertionError(f"non-finite metrics {res}")
+        raise AssertionError(f"{name}: non-finite metrics {res}")
+    return launches, fwd, wall, res
+
+
+def forward_times(model, x):
+    """The forward's ms per batch (CUDA events) and its device ms."""
+    with torch.inference_mode():
+        return (time_ms(lambda: model(x), warmup=2, reps=5),
+                device_ms(lambda: model(x), reps=5))
+
+
+def slice_bf16(dev, card):
+    import pctrans_torch.models.pixel_decoder as pixel_decoder
+    from pctrans_torch.config import CVPPP_RECIPE
+    from pctrans_torch.engine.evaluator import Evaluator
+    from pctrans_torch.inference.postprocess import instance_inference_cvppp
+    from pctrans_torch.ops.msdeform import (ms_deform_attn, ms_deform_attn_separable,
+                                            ms_deform_attn_separable_twin)
+
+    model = build_model(CVPPP_RECIPE, dev)
+    ev = Evaluator(model, top_k=50)
+    batches = list(scene_batches(N_EVAL_BATCHES, SEED + 1))
+    c = CVPPP_RECIPE
+    launches, fwd, wall, res = eval_run(
+        f"bf16 CVPPP eval, batch {BATCH}, {IMAGE_HW}", ev, batches, ev.eval_cvppp,
+        (c.enc_layers, c.dec_layers + 1, 1))
     print(f"SBD {res['SBD']:.4f}, |DiC| {res['absDiffFG']:.4f} "
           "(random weights: shows only that the chain ran)")
-
-    labels = ev.predict_labels(batches[0]["image"])
-    if labels.shape != (BATCH,) + IMAGE_HW:
-        raise AssertionError(f"labels shape {labels.shape}")
-    print("instances per image of batch 0: "
-          + " ".join(str(int(l.max())) for l in labels))
+    check_labels("CVPPP", ev, batches, instance_inference_cvppp)
     x = torch.from_numpy(batches[0]["image"]).to(dev)
     k1_calls = []
 
@@ -759,8 +901,7 @@ def slice_bf16(dev, card):
         if tuple(out["pred_masks"].shape) != (BATCH, c.num_queries,
                                                *stage_sizes(IMAGE_HW)[0]):
             raise AssertionError(f"pred_masks shape {tuple(out['pred_masks'].shape)}")
-        fwd_ms = time_ms(lambda: model(x), warmup=2, reps=5)
-        fwd_dev = device_ms(lambda: model(x), reps=5)
+        fwd_ms, fwd_dev = forward_times(model, x)
         k1_model = time_on_model_inputs(
             "K1", ms_deform_attn, lambda *a: ms_deform_attn(*a, impl="twin"),
             "msdeform_fwd_kernel", k1_calls, 1e-2)
@@ -779,12 +920,51 @@ def slice_bf16(dev, card):
         k5_model = time_on_model_inputs("K5", ms_deform_attn_separable,
                                         ms_deform_attn_separable_twin, K5_KERNEL,
                                         k5_calls, K5_BF16_TOL)
-    print(f"bf16 forward {fwd_ms:.3f} ms/batch of {BATCH} (CUDA events), "
+    print(f"bf16 CVPPP forward {fwd_ms:.3f} ms/batch of {BATCH} (CUDA events), "
           f"{fwd_dev:.3f} ms of it device time ({1 - fwd_dev / fwd_ms:.1%} "
           f"idle); end to end {N_EVAL_BATCHES * BATCH / wall:.3f} img/s "
-          f"({wall:.3f} s wall for {N_EVAL_BATCHES * BATCH} images, host "
-          f"postprocess included) on {card}")
+          f"({wall:.3f} s wall for {N_EVAL_BATCHES * BATCH} images, {fwd} forwards, "
+          f"device postprocess included) on {card}")
     return launches, k1_model, k5_model
+
+
+def slice_bbbc(dev, card):
+    """The BBBC recipe as served: ``Evaluator(dataset="bbbc", top_k=160)``
+    with the full-width recipe (Q=300, bf16, seeded random weights) over
+    batches of two 520x696 nuclei scenes (``synthetic_bbbc``'s rule at that
+    size).  Random weights put nearly every query above the 0.05 threshold,
+    so every batch runs again at full Q (K=300), and clustering at 0.15
+    folds most masks together: the worst case for the statistics and the
+    paint."""
+    from pctrans_torch.config import BBBC_RECIPE
+    from pctrans_torch.data.synthetic import nuclei_scene_rule
+    from pctrans_torch.engine.evaluator import Evaluator
+    from pctrans_torch.inference.postprocess import instance_inference_bbbc
+
+    n_inst, radius = nuclei_scene_rule(BBBC_HW)
+    batches = list(scene_batches(N_EVAL_BATCHES, SEED + 3, BBBC_BATCH, BBBC_HW,
+                                 n_instances=n_inst, radius_px=radius))
+    print(f"BBBC scenes {BBBC_HW}: {n_inst[0]}-{n_inst[1]} nuclei of radius {radius[0]}-"
+          f"{radius[1]} px; instances per image "
+          + " ".join(str(int(l.max())) for b in batches for l in b["label"]))
+    model = build_model(BBBC_RECIPE, dev)
+    ev = Evaluator(model, top_k=BBBC_TOP_K, dataset="bbbc")
+    c = BBBC_RECIPE
+    launches, fwd, wall, res = eval_run(
+        f"bf16 BBBC eval (Q={c.num_queries}, TOP_K {BBBC_TOP_K}), batch {BBBC_BATCH}, "
+        f"{BBBC_HW}", ev, batches, ev.test_bbbc, (c.enc_layers, c.dec_layers + 1, 1))
+    print("BBBC metrics " + ", ".join(f"{k} {v:.4f}" for k, v in res.items())
+          + (" (random weights: shows only that the chain ran; every batch re-ran at full Q, "
+             "K=300, the worst case for the statistics and the paint)"
+             if fwd == 2 * len(batches) else ""))
+    post = check_labels("BBBC", ev, batches, instance_inference_bbbc)
+    x = torch.from_numpy(batches[0]["image"]).to(dev)
+    fwd_ms, fwd_dev = forward_times(model, x)
+    print(f"bf16 BBBC forward {fwd_ms:.3f} ms/batch of {BBBC_BATCH} (CUDA events), "
+          f"{fwd_dev:.3f} ms of it device time ({1 - fwd_dev / fwd_ms:.1%} idle); end to "
+          f"end {len(batches) * BBBC_BATCH / wall:.3f} img/s ({fwd} forwards, device "
+          f"postprocess {statistics.mean(post['post_ms']):.3f} ms per batch) on {card}")
+    return launches
 
 
 def train_f32_backward(dev):
@@ -1044,6 +1224,84 @@ def entry_points(card):
     return k5_train
 
 
+def entry_points_bbbc(card):
+    """``scripts/main_torch.py`` with the two BBBC YAMLs on ``synthetic_bbbc``
+    (2 bf16 iterations at 512x512 batch 2, MAX_INSTANCES 128, a checkpoint
+    and a validation at 2: ``test_bbbc``, AJI to ``logging.txt``,
+    ``checkpoint_best``), then ``scripts/eval_torch.py --name bbbc`` over its
+    checkpoint; the default dispatch (K1).  Returns the run's launches
+    (K1, K2, K3, K4)."""
+    from pctrans_torch.ops.msdeform import ms_deform_attn, ms_deform_attn_backward
+    from pctrans_torch.ops.render import dynamic_mask_render
+    from pctrans_torch.ops.resize_binarize import resize_bilinear_binarize
+
+    sys.path.insert(0, str(REPO / "scripts"))
+    import eval_torch
+    import main_torch
+
+    counters = (ms_deform_attn, ms_deform_attn_backward, dynamic_mask_render,
+                resize_bilinear_binarize)
+    metrics = ["AJI", "F1", "detF1", "PQ"]
+    (REPO / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=REPO / "build") as tmp:
+        cfg_args = ["--config-base", str(REPO / "configs/BBBC/BBBC-PCTrans-Base.yaml"),
+                    "--config-file", str(REPO / "configs/BBBC/BBBC-PCTrans.yaml")]
+        it = BBBC_ENTRY_ITERS
+        opts = ["DATASET.DATA_TYPE", "synthetic_bbbc",
+                "SOLVER.ITERATION_TOTAL", str(it), "SOLVER.ITERATION_SAVE", str(it),
+                "SOLVER.START_SAVE", "0", "SOLVER.ITERATION_VAL", str(it),
+                "DATASET.OUTPUT_PATH", tmp, "INFERENCE.OUTPUT_PATH", f"{tmp}/test",
+                "MONITOR.TENSORBOARD", "False", "MONITOR.ITERATION_NUM", "[1, 200]"]
+        for fn in counters:
+            fn.launches = 0
+        t0 = time.perf_counter()
+        trainer = main_torch.main(cfg_args + ["--opts", *opts])
+        train_wall = time.perf_counter() - t0
+        launches = [fn.launches for fn in counters]
+        fwd = trainer.evaluator.forwards
+        c, cfg = trainer.model_config, trainer.cfg
+        print(f"main_torch.py, BBBC YAMLs on synthetic_bbbc, {it} bf16 iterations of "
+              f"{cfg.SOLVER.SAMPLES_PER_BATCH}x{cfg.MODEL.INPUT_SIZE}, MAX_INSTANCES "
+              f"{cfg.MODEL.MAX_INSTANCES}, Q={c.num_queries}, + {fwd} validation forwards: "
+              f"launches K1 {launches[0]}, K2 {launches[1]}, K3 {launches[2]}, K4 "
+              f"{launches[3]}; wall {train_wall:.3f} s, on {card}")
+        if (c.num_queries, cfg.MODEL.MAX_INSTANCES, list(cfg.MODEL.INPUT_SIZE),
+                cfg.SOLVER.SAMPLES_PER_BATCH) != (300, 128, [512, 512], 2):
+            raise AssertionError("the BBBC entry-point run is not the BBBC recipe")
+        if fwd < 4 or launches != [c.enc_layers * (it + fwd), c.enc_layers * it,
+                                   (c.dec_layers + 1) * fwd, fwd]:
+            raise AssertionError("BBBC entry-point launch counts do not match the run")
+        lines = [json.loads(l) for l in Path(tmp, "metrics.jsonl").read_text().splitlines()]
+        train = [r for r in lines if "eval" not in r]
+        evals = [r["eval"] for r in lines if "eval" in r]
+        if ([r["iter"] for r in train] != list(range(it)) or len(evals) != 1
+                or not set(metrics) <= set(evals[0])
+                or not all(math.isfinite(v) for r in train + evals for v in r.values())):
+            raise AssertionError(f"metrics.jsonl records {lines}")
+        saved = sorted(f for f in os.listdir(tmp) if f.endswith(".pth.tar"))
+        log = Path(tmp, "test", "logging.txt").read_text().splitlines()
+        if saved != [f"checkpoint_{it:06d}.pth.tar", "checkpoint_best.pth.tar"] or \
+                log[:2] != [f"val_{it:06d}", " ".join(str(evals[0][k]) for k in metrics)]:
+            raise AssertionError(f"checkpoints {saved}, logging.txt {log}")
+        print(f"validation {evals[0]}; checkpoints {saved}; logging.txt {log}")
+
+        for fn in counters:
+            fn.launches = 0
+        t0 = time.perf_counter()
+        records = eval_torch.main(cfg_args + ["--name", "bbbc", "--start", "0",
+                                              "--opts", *opts])
+        sweep_wall = time.perf_counter() - t0
+        k1, k2, k3, k4 = [fn.launches for fn in counters]
+        print(f"eval_torch.py --name bbbc: {records}; launches K1 {k1}, K3 {k3}, K4 {k4} "
+              f"(one per forward), K2 {k2}; sweep wall {sweep_wall:.3f} s, on {card}")
+        if [r["iter"] for r in records] != [it] or \
+                not all(math.isfinite(records[0][k]) for k in metrics):
+            raise AssertionError("the BBBC sweep did not score the checkpoint")
+        if k4 < 4 or [k1, k3, k2] != [c.enc_layers * k4, (c.dec_layers + 1) * k4, 0]:
+            raise AssertionError("BBBC sweep launch counts do not match its forwards")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -1082,12 +1340,15 @@ def main() -> int:
     (k1_eval, k3, k4), k1_model, k5_model = slice_bf16(dev, card)
     k1_gate.update(k1_model)
     k5_gate.update(k5_model)
+    bbbc_eval = slice_bbbc(dev, card)
     (k1, k2, _), k2_model = train_bf16(dev, card)
     k2_gate.update(k2_model)
     k5 = entry_points(card)
+    bbbc_entry = entry_points_bbbc(card)
     print(f"main paths: train K1 {k1}, K2 {k2}; eval K1 {k1_eval}, K3 {k3}, "
-          f"K4 {k4}; entry points under PCTRANS_MSDA_IMPL=pallas K5 {k5} (the "
-          "kernels line reports K1/K2 from train, K3/K4 from eval, K5 from the "
+          f"K4 {k4}; entry points under PCTRANS_MSDA_IMPL=pallas K5 {k5}; BBBC eval "
+          f"K1, K3, K4 {bbbc_eval}; BBBC entry points K1, K2, K3, K4 {bbbc_entry} (the "
+          "kernels line reports K1/K2 from train, K3/K4 from the CVPPP eval, K5 from the "
           "entry-point run)")
     launches = [k1, k2, k3, k4, k5]
 

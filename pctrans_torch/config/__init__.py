@@ -6,10 +6,11 @@ import os
 from typing import List, Optional
 
 from .defaults import get_cfg_defaults
-from .model import CVPPP_RECIPE, ModelConfig, build_model_config, validate
+from .model import BBBC_RECIPE, CVPPP_RECIPE, ModelConfig, build_model_config, validate
 from .node import CfgNode
 
 __all__ = [
+    "BBBC_RECIPE",
     "CVPPP_RECIPE",
     "CfgNode",
     "ModelConfig",

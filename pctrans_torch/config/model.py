@@ -5,8 +5,8 @@ Swin fields and its ``remat``/``remat_policy`` train-memory knobs are not
 carried: the Swin backbone is not ported yet, and remat is a training-only
 choice of the JAX graph.
 
-``CVPPP_RECIPE`` is the configuration that
-``configs/CVPPP/CVPPP-PCTrans{-Base,}.yaml`` build, as a plain constant.
+``CVPPP_RECIPE`` and ``BBBC_RECIPE`` are the configurations that
+``configs/{CVPPP,BBBC}/*-PCTrans{-Base,}.yaml`` build, as plain constants.
 ``build_model_config`` maps a config tree loaded by
 ``pctrans_torch.config.load_cfg``.
 """
@@ -51,6 +51,8 @@ class ModelConfig:
 # published quirk applied on top of the loaders' own normalization) and
 # MIXED_PRECESION: true.
 CVPPP_RECIPE = ModelConfig(pixel_std=(255.0, 255.0, 255.0), dtype="bfloat16")
+# configs/BBBC/BBBC-PCTrans{-Base,}.yaml: the CVPPP recipe with 300 queries
+BBBC_RECIPE = dataclasses.replace(CVPPP_RECIPE, num_queries=300)
 
 
 def validate(c: ModelConfig) -> None:

@@ -24,12 +24,11 @@ from typing import Dict, Iterator
 
 import numpy as np
 
+from .bbbc import BBBC
 from .cvppp import CVPPP
-from .synthetic import SyntheticDataset
+from .synthetic import SyntheticDataset, nuclei_scene_rule
 
 _NOT_PORTED = {
-    "BBBC": "ROADMAP item 21 (the BBBC recipe)",
-    "synthetic_bbbc": "ROADMAP item 21 (the BBBC recipe)",
     "cellpose": "ROADMAP item 21a (instance-folder datasets)",
     "monuseg": "ROADMAP item 21a (instance-folder datasets)",
     "volume": "ROADMAP item 26 (the legacy EM zoo)",
@@ -41,10 +40,18 @@ def get_dataset(cfg, mode: str):
     dt = cfg.DATASET.DATA_TYPE
     if dt == "CVPPP":
         return CVPPP(cfg.DATASET.INPUT_PATH, mode, crop_size=cfg.MODEL.INPUT_SIZE[-1])
-    if dt == "synthetic":
-        return SyntheticDataset(size=tuple(cfg.MODEL.INPUT_SIZE[-2:]),
-                                length=64 if mode == "train" else 8,
-                                n_instances=(4, 12),
+    if dt == "BBBC":
+        # the reference crops at 512x512 (dataset_BBBC.py:113), the value
+        # the recipe's MODEL.INPUT_SIZE carries
+        return BBBC(cfg.DATASET.INPUT_PATH,
+                    {"train": "train", "val": "validation", "test": "test"}[mode],
+                    crop_size=tuple(cfg.MODEL.INPUT_SIZE[-2:]))
+    if dt in ("synthetic", "synthetic_bbbc"):
+        size = tuple(cfg.MODEL.INPUT_SIZE[-2:])
+        n_inst, radius = (nuclei_scene_rule(size) if dt == "synthetic_bbbc"
+                          else ((4, 12), None))
+        return SyntheticDataset(size=size, length=64 if mode == "train" else 8,
+                                n_instances=n_inst, radius_px=radius,
                                 seed={"train": 0, "val": 1, "test": 2}[mode])
     if dt in _NOT_PORTED:
         raise NotImplementedError(f"DATASET.DATA_TYPE {dt!r}: not ported yet, "

@@ -1,9 +1,9 @@
-"""Synthetic CVPPP-shaped scenes (numpy), for runs without data.
+"""Synthetic scenes (numpy), for runs without data.
 
 The same generator and dataset as ``pctrans_tpu/data/synthetic.py``:
-coloured elliptical "leaves" on a dark background with consecutive-id
-instance labels, deterministic per (seed, index).  Tests hold the two
-bit-equal.
+coloured elliptical "leaves" (or, by ``nuclei_scene_rule``, dense small
+nuclei) on a dark background with consecutive-id instance labels,
+deterministic per (seed, index).  Tests hold the two bit-equal.
 """
 
 from __future__ import annotations
@@ -57,6 +57,18 @@ def make_blob_image(
     remap = np.zeros(ids.max() + 1, np.int32)
     remap[ids] = np.arange(len(ids))
     return img, remap[label]
+
+
+def nuclei_scene_rule(size: Tuple[int, int]):
+    """(n_instances, radius_px) of ``synthetic_bbbc`` scenes at ``size``:
+    BBBC039 has ~50-150 nuclei per 520x696 image (1.4e-4 to 4.1e-4 per
+    pixel) of about fixed size, so the count scales with the area and the
+    radii stay in pixels (50-148 nuclei of radius 10-22 px at 520x696)."""
+    area = size[0] * size[1]
+    n_inst = (max(2, int(area * 1.4e-4)), max(4, int(area * 4.1e-4)))
+    radius = (max(3.0, min(10.0, 0.05 * min(size))),
+              max(6.0, min(22.0, 0.2 * min(size))))
+    return n_inst, radius
 
 
 class SyntheticDataset:

@@ -5,7 +5,10 @@ branch).
 f32, runs the forward (bf16 autocast when the config asks for it), keeps
 the ``top_k`` queries with the highest peak logit, and upsamples and
 binarizes them at the input size in one K4 launch:
-``(masks_u8 [B, K, H, W], peaks [B, K] f32)``.
+``(masks_u8 [B, K, H, W], peaks [B, K] f32)``.  With ``with_stats`` the
+same call also computes the masks' areas, K x K intersections and peak
+logits on the device, packed into one f32 array (``device_postprocess.
+packed_mask_stats``): ``(masks_u8, stats [B, K, K+2])``.
 
 The top-k filter is exact while at most K queries clear the threshold:
 bilinear upsampling is a convex combination, so a query's upsampled peak
@@ -21,12 +24,16 @@ from typing import Callable, Optional, Tuple
 
 import torch
 
+from ..inference.device_postprocess import packed_mask_stats
 from ..models import PCTransModel
 from ..ops.resize_binarize import resize_bilinear_binarize
 
 
 def make_eval_step(model: PCTransModel, top_k: Optional[int],
-                   threshold: float) -> Callable:
+                   threshold: Optional[float], with_stats: bool = False) -> Callable:
+    if threshold is None:
+        raise ValueError("the eval step binarizes: it needs a threshold"
+                         + (" (with_stats requires one)" if with_stats else ""))
     logit_t = math.log(threshold / (1.0 - threshold))
 
     @torch.inference_mode()
@@ -43,6 +50,8 @@ def make_eval_step(model: PCTransModel, top_k: Optional[int],
             peaks = peak
         masks_u8 = resize_bilinear_binarize(masks, tuple(images.shape[1:3]),
                                             logit_t)
+        if with_stats:
+            return masks_u8, packed_mask_stats(masks_u8, extra=peaks)
         return masks_u8, peaks
 
     return eval_step

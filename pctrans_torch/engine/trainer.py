@@ -1,23 +1,25 @@
 """Trainer: the training and evaluation loop (mirror of
-``pctrans_tpu/engine/trainer.py:55-304, 356-499, 557-562``) over the port's
-train step and CVPPP evaluator, on one device.
+``pctrans_tpu/engine/trainer.py:55-304, 356-555``) over the port's train
+step and evaluator, on one device.
 
 * ``train()``: the iteration loop: prefetching loader -> ``make_train_step``
   -> every loss term and the LR to the monitor -> in-training
   ``validate()`` every SOLVER.ITERATION_VAL with ``checkpoint_best`` at the
-  best SBD -> ``checkpoint_%06d.pth.tar`` every SOLVER.ITERATION_SAVE from
+  best primary metric (SBD; AJI for ``BBBC`` / ``synthetic_bbbc``) ->
+  ``checkpoint_%06d.pth.tar`` every SOLVER.ITERATION_SAVE from
   SOLVER.START_SAVE on.
-* ``eval_cvppp()``: SBD and |DiC| over the val split, scored on the valid
-  rows of each padded batch, appended to ``INFERENCE.OUTPUT_PATH/logging.txt``.
+* ``eval_cvppp()``: SBD and |DiC| over the val split; ``test_bbbc()``: AJI,
+  F1, detection F1 and PQ over the test split; both score the valid rows of
+  each padded batch and append to ``INFERENCE.OUTPUT_PATH/logging.txt``.
 * Resume (``:103-113``): a checkpoint restores strictly, else by matching
   keys and shapes; the loop starts at the restored iteration unless
   SOLVER.ITERATION_RESTART (then at MODEL.PRE_MODEL_ITER).
 
 Not ported yet, and raising: SWA (ROADMAP item 14a), DATASET.TRANSFER_UINT8
-(15a), ``test_cvppp`` (19), ``test_bbbc`` (21).  The JAX trainer's f16 image
-and int16 label transfer casts are workarounds for a slow host-to-TPU link
-and are not carried; the in-training visualizer waits for TensorBoard
-(item 23).
+(15a), ``test_cvppp`` (19).  The JAX trainer's f16 image and int16 label
+transfer casts and its pipelined label stream are workarounds for a slow
+host-to-TPU link and are not carried; the in-training visualizer waits for
+TensorBoard (item 23).
 """
 
 from __future__ import annotations
@@ -88,8 +90,10 @@ class Trainer:
             if not cfg.SOLVER.ITERATION_RESTART:
                 self.start_iter = step
 
-        top_k = int(cfg.INFERENCE.get("TOP_K", 0) or 0)
-        self.evaluator = Evaluator(self.model, top_k=top_k or None)
+        self.top_k = int(cfg.INFERENCE.get("TOP_K", 0) or 0) or None
+        self.dataset = ("bbbc" if cfg.DATASET.DATA_TYPE in ("BBBC", "synthetic_bbbc")
+                        else "cvppp")
+        self.evaluator = Evaluator(self.model, self.top_k, self.dataset)
         if mode == "train":
             generator = torch.Generator(device=self.device).manual_seed(
                 int(cfg.SYSTEM.get("SEED", 42)))
@@ -128,15 +132,20 @@ class Trainer:
 
     def validate(self, iteration: int) -> Dict[str, float]:
         """Score the val split, log it, and keep ``checkpoint_best`` at the
-        best SBD."""
+        best primary metric (SBD, or AJI for BBBC)."""
         if not hasattr(self, "_val_loader"):
             self._val_loader = build_dataloader(self.cfg, "val")
-        res = self.eval_cvppp(loader=iter(self._val_loader),
-                              model_name=f"val_{iteration:06d}")
+        name = f"val_{iteration:06d}"
+        if self.dataset == "bbbc":
+            res = self.test_bbbc(loader=iter(self._val_loader), model_name=name)
+            primary = res["AJI"]
+        else:
+            res = self.eval_cvppp(loader=iter(self._val_loader), model_name=name)
+            primary = res["SBD"]
         if hasattr(self, "monitor"):
             self.monitor.add_eval(iteration, res)
-        if res["SBD"] > self.best_val:
-            self.best_val = res["SBD"]
+        if primary > self.best_val:
+            self.best_val = primary
             ckpt.save_checkpoint(self.output_dir, self.model, self.optimizer,
                                  self.scheduler, iteration, is_best=True)
         return res
@@ -145,17 +154,26 @@ class Trainer:
         return ckpt.save_checkpoint(self.output_dir, self.model, self.optimizer,
                                     self.scheduler, iteration + 1, is_best)
 
-    def predict_labels(self, images):
-        """images [B, H, W, 3] -> instance label maps [B, H, W]."""
-        return self.evaluator.predict_labels(images)
+    def predict_labels(self, images, dataset: Optional[str] = None):
+        """images [B, H, W, 3] -> int16 instance label maps [B, H, W] by
+        ``dataset``'s protocol ("cvppp" or "bbbc"; by default the config's)."""
+        if dataset in (None, self.dataset):
+            return self.evaluator.predict_labels(images)
+        return Evaluator(self.model, self.top_k, dataset).predict_labels(images)
+
+    def _scored(self, score, mode: str, loader):
+        """``score`` over ``loader``, or over a ``mode`` loader built and
+        closed here."""
+        if loader is not None:
+            return score(loader)
+        built = build_dataloader(self.cfg, mode)
+        try:
+            return score(built)
+        finally:
+            built.close()
 
     def eval_cvppp(self, loader=None, model_name: str = "model") -> Dict[str, float]:
-        if loader is None:
-            val = build_dataloader(self.cfg, "val")
-            res = self.evaluator.eval_cvppp(val)
-            val.close()
-        else:
-            res = self.evaluator.eval_cvppp(loader)
+        res = self._scored(self.evaluator.eval_cvppp, "val", loader)
         self._append_log(model_name, [res["SBD"], res["absDiffFG"]])
         return res
 
@@ -164,7 +182,9 @@ class Trainer:
                                   "submission.h5): ROADMAP item 19")
 
     def test_bbbc(self, loader=None, model_name: str = "model") -> Dict[str, float]:
-        raise NotImplementedError("test_bbbc (the BBBC eval protocol): ROADMAP item 21")
+        res = self._scored(self.evaluator.test_bbbc, "test", loader)
+        self._append_log(model_name, [res["AJI"], res["F1"], res["detF1"], res["PQ"]])
+        return res
 
     def _append_log(self, model_name: str, values) -> None:
         out = self.cfg.INFERENCE.OUTPUT_PATH

@@ -9,8 +9,10 @@ Usage:
   python scripts/eval_torch.py --config-base ... --config-file ... \
       [--start 51000] [--out sweep.json] [--device cuda|cpu] [--opts ...]
 
-``main(argv)`` runs in-process and returns the records
-``[{"iter", "SBD", "absDiffFG"}, ...]``.
+``--name bbbc`` (or DATASET.DATA_TYPE ``BBBC`` / ``synthetic_bbbc``) scores
+``test_bbbc`` over the test split, otherwise ``eval_cvppp`` over the val
+split.  ``main(argv)`` runs in-process and returns the records
+``[{"iter", **metrics}, ...]``.
 """
 
 import argparse
@@ -56,7 +58,7 @@ def main(argv=None):
     for path in sweep:
         ckpt.restore_checkpoint(path, trainer.model)
         name = os.path.basename(path)
-        if args.name == "bbbc" or cfg.DATASET.DATA_TYPE == "BBBC":
+        if args.name == "bbbc" or cfg.DATASET.DATA_TYPE in ("BBBC", "synthetic_bbbc"):
             res = trainer.test_bbbc(model_name=name)
         else:
             res = trainer.eval_cvppp(model_name=name)

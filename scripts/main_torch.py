@@ -54,13 +54,16 @@ def main(argv=None) -> Trainer:
                       checkpoint=args.checkpoint, device=args.device)
     if not args.inference:
         trainer.train()
-    elif cfg.DATASET.DATA_TYPE in ("CVPPP", "synthetic"):
-        if args.submission:
-            print(trainer.test_cvppp())
-        else:
-            print(trainer.eval_cvppp(model_name=os.path.basename(args.checkpoint or "model")))
     else:
-        print(trainer.test_bbbc(model_name=os.path.basename(args.checkpoint or "model")))
+        name = os.path.basename(args.checkpoint or "model")
+        dt = cfg.DATASET.DATA_TYPE
+        if dt in ("CVPPP", "synthetic"):
+            print(trainer.test_cvppp() if args.submission
+                  else trainer.eval_cvppp(model_name=name))
+        elif dt == "BBBC":
+            print(trainer.test_bbbc(model_name=name))
+        else:
+            raise ValueError(f"No inference path for DATA_TYPE={dt}")
     print(f"Total runtime: {time.time() - t0:.1f}s")
     return trainer
 

@@ -96,3 +96,19 @@ def test_unknown_opts_key_raises_and_frozen_cfg_refuses_writes():
 def test_model_config_from_the_yamls_is_the_recipe_constant():
     cfg = config.load_cfg(str(PAIRS[0][0]), str(PAIRS[0][1]))
     assert config.build_model_config(cfg) == config.CVPPP_RECIPE
+
+
+def test_bbbc_yamls_give_the_bbbc_recipe_as_jax_builds_it():
+    """``BBBC_RECIPE`` is what the BBBC YAMLs build in both packages: the
+    CVPPP recipe with 300 queries."""
+    import dataclasses
+
+    from pctrans_tpu.models import build_model_config as jax_build_model_config
+
+    ours = config.build_model_config(config.load_cfg(str(PAIRS[1][0]), str(PAIRS[1][1])))
+    assert ours == config.BBBC_RECIPE
+    ref = jax_build_model_config(jax_config.load_cfg(str(PAIRS[1][0]), str(PAIRS[1][1])))
+    for f in dataclasses.fields(ours):
+        assert getattr(ours, f.name) == getattr(ref, f.name), f.name
+    assert config.BBBC_RECIPE.num_queries == 300
+    assert dataclasses.replace(config.BBBC_RECIPE, num_queries=100) == config.CVPPP_RECIPE

@@ -1,6 +1,7 @@
-"""The PyTorch port's eval step and CVPPP evaluator on the CPU (twins): the
-TOP_K lossiness check and full-Q re-run (``engine/trainer.py:386-396``),
-the label chain, and the bf16 autocast forward."""
+"""The PyTorch port's eval step and evaluator on the CPU (twins): the TOP_K
+lossiness check and full-Q re-run (``engine/trainer.py:438-452``) for both
+recipes, the step's packed statistics, the label chain through the device
+postprocess, and the bf16 autocast forward."""
 
 import dataclasses
 
@@ -10,7 +11,11 @@ import torch
 
 from pctrans_torch.config import ModelConfig
 from pctrans_torch.data.synthetic import make_blob_image
+from pctrans_torch.engine.eval_step import make_eval_step
 from pctrans_torch.engine.evaluator import Evaluator
+from pctrans_torch.inference import device_postprocess as dp
+from pctrans_torch.inference.postprocess import (instance_inference_bbbc,
+                                                 instance_inference_cvppp)
 from pctrans_torch.models import PCTransModel
 
 torch.set_num_threads(1)
@@ -91,3 +96,67 @@ def test_bf16_forward_runs_under_autocast():
     assert torch.isfinite(out16["pred_masks"].float()).all()
     a, b = out16["mask_features"], out32["mask_features"]
     assert float((a - b).norm() / b.norm()) < 5e-2   # bf16 rounding, 6 convs deep
+
+
+@pytest.mark.parametrize("mask_logit,forwards,k", [(-2.0, 2, 10), (-3.5, 1, 4)])
+def test_bbbc_reruns_a_lossy_top_k_batch_with_all_queries(mask_logit, forwards, k):
+    """At BBBC's 0.05 threshold (logit -2.94) a constant logit of -2 clears
+    it, so the top 4 are lossy and the batch runs again with all ten
+    queries; -3.5 does not."""
+    ev = Evaluator(_model(mask_logit=mask_logit), top_k=4, dataset="bbbc")
+    assert ev.threshold == 0.05
+    masks = ev.predict_masks(next(_batches(1))["image"])
+    assert ev.forwards == forwards and masks.shape == (2, k) + HW
+    assert bool(masks.all()) == (mask_logit > -2.94)
+    labels = ev.predict_labels(next(_batches(1))["image"])
+    assert labels.dtype == np.int16 and (labels == int(mask_logit > -2.94)).all()
+
+
+@pytest.mark.parametrize("dataset", ["cvppp", "bbbc"])
+def test_labels_are_the_oracles_on_the_steps_masks(dataset):
+    """A seeded model: the device postprocess gives the numpy oracle's label
+    maps on the eval step's own masks."""
+    oracle = {"cvppp": instance_inference_cvppp, "bbbc": instance_inference_bbbc}[dataset]
+    ev = Evaluator(_model(), top_k=4, dataset=dataset)
+    masks, stats = ev.masks_and_stats(next(_batches(1, seed=3))["image"])
+    labels = ev.label_masks(masks, stats)
+    ref = np.stack([oracle(m.astype(np.float32), ev.threshold) for m in masks.numpy()])
+    np.testing.assert_array_equal(labels, ref)
+
+
+def test_predict_labels_fetches_statistics_and_labels_not_masks(monkeypatch):
+    """Every host fetch goes through ``Tensor.cpu``: one predict_labels call
+    fetches the packed statistics of each forward, CVPPP's merged
+    statistics and the label map, never the [B, K, H, W] masks."""
+    ev = Evaluator(_model(mask_logit=20.0), top_k=4)
+    fetched = []
+    cpu = torch.Tensor.cpu
+
+    def record(t, *a, **k):
+        fetched.append(tuple(t.shape))
+        return cpu(t, *a, **k)
+
+    monkeypatch.setattr(torch.Tensor, "cpu", record)
+    labels = ev.predict_labels(next(_batches(1))["image"])
+    Q = TINY.num_queries
+    assert fetched == [(2, 4, 6), (2, Q, Q + 2), (2, Q, Q + 1), (2,) + HW]
+    assert labels.shape == (2,) + HW
+
+
+def test_eval_step_with_stats_packs_the_masks_statistics():
+    """``with_stats``: the same masks as the plain step, and statistics
+    equal to those recomputed from them (peak logits in the last column)."""
+    model = _model()
+    x = torch.from_numpy(next(_batches(1, seed=5))["image"])
+    m0, peaks = make_eval_step(model, 4, 0.3)(x)
+    m1, stats = make_eval_step(model, 4, 0.3, with_stats=True)(x)
+    assert stats.shape == (2, 4, 6) and stats.dtype == torch.float32
+    np.testing.assert_array_equal(m0.numpy(), m1.numpy())
+    areas, inter, extra = dp.unpack_mask_stats(stats.numpy())
+    flat = m0.numpy().reshape(2, 4, -1).astype(np.int64)
+    np.testing.assert_array_equal(areas, flat.sum(-1))
+    np.testing.assert_array_equal(inter, np.einsum("bkp,bjp->bkj", flat, flat))
+    np.testing.assert_array_equal(extra, peaks.numpy())
+    assert 0 < areas.sum() < flat.size
+    with pytest.raises(ValueError, match="with_stats"):
+        make_eval_step(model, 4, None, with_stats=True)

@@ -72,15 +72,18 @@ def run(request):
                  for c, t in variables.items()}
     eval_step = jax_make_eval_step(JaxConfig(**kw), top_k=TOP_K,
                                    threshold=THRESHOLD)
+    stats_step = jax_make_eval_step(JaxConfig(**kw), top_k=TOP_K,
+                                    threshold=THRESHOLD, with_stats=True)
 
     @jax.jit
     def jax_run(variables, images):
         state = types.SimpleNamespace(params=variables["params"],
                                       frozen=variables.get("frozen", {}),
                                       batch_stats=variables.get("batch_stats", {}))
-        return jmodel.apply(variables, images), eval_step(state, images)
+        return (jmodel.apply(variables, images), eval_step(state, images),
+                stats_step(state, images)[1])
 
-    jout, (jmasks, jpeaks) = jax.tree_util.tree_map(
+    jout, (jmasks, jpeaks), jstats = jax.tree_util.tree_map(
         np.asarray, jax_run(variables, jnp.asarray(images)))
 
     model = PCTransModel(ModelConfig(**kw)).eval()
@@ -88,9 +91,13 @@ def run(request):
     with torch.no_grad():
         tout = model(torch.from_numpy(images))
     tmasks, tpeaks = make_eval_step(model, TOP_K, THRESHOLD)(torch.from_numpy(images))
+    smasks, tstats = make_eval_step(model, TOP_K, THRESHOLD, with_stats=True)(
+        torch.from_numpy(images))
+    assert torch.equal(smasks, tmasks)
     return types.SimpleNamespace(images=images, variables=variables, model=model,
                                  jout=jout, tout=tout, jmasks=jmasks, jpeaks=jpeaks,
-                                 tmasks=tmasks.numpy(), tpeaks=tpeaks.numpy())
+                                 tmasks=tmasks.numpy(), tpeaks=tpeaks.numpy(),
+                                 jstats=jstats, tstats=tstats.numpy())
 
 
 KEYS = ["pred_masks", "aux_masks", "reference_points", "aux_reference_points",
@@ -136,6 +143,20 @@ def test_eval_step_masks_match_jax(run):
     assert (np.abs(logits[differ] - LOGIT_T) <= 1e-3).all()
     assert differ.sum() <= 1e-4 * differ.size
     assert run.tmasks.any() and (run.tmasks == 0).any()
+
+
+def test_eval_step_stats_match_jax(run):
+    """``with_stats``: the packed [B, K, K+2] statistics of each side's
+    masks, the counts exact (the masks agree on this seed) and the peak
+    logits within the forward's tolerance."""
+    assert run.tstats.shape == run.jstats.shape == (2, TOP_K, TOP_K + 2)
+    np.testing.assert_array_equal(run.tmasks, run.jmasks)
+    np.testing.assert_array_equal(run.tstats[..., :-1], run.jstats[..., :-1])
+    np.testing.assert_allclose(run.tstats[..., -1], run.jstats[..., -1], rtol=RTOL, atol=ATOL)
+    np.testing.assert_array_equal(run.tstats[..., -1], run.tpeaks)
+    flat = run.tmasks.reshape(2, TOP_K, -1).astype(np.int64)
+    np.testing.assert_array_equal(run.tstats[..., TOP_K], flat.sum(-1))
+    assert run.tstats[..., TOP_K].max() > 0
 
 
 def test_label_maps_match_jax(run):

@@ -3,7 +3,8 @@ config of ``tests/test_trainer.py::tiny_cfg`` (64x64, so that GroupNorm's
 1x1 res5 map has more than one value per group), ``synthetic`` data, f32,
 from JAX-init weights, against the JAX package's ``make_train_step`` on the
 same batches, weights and re-id draws; then the checkpoint sweep of
-``scripts/eval_torch.py``; the ``_num_valid`` repair; the CLI without a card.
+``scripts/eval_torch.py``; the ``_num_valid`` repair; the CLI without a card;
+the BBBC recipe's train, validation (AJI), ``test_bbbc`` and dispatch.
 
 Loss tolerances are ``tests/test_torch_train_step.py``'s (f32, the JAX CPU
 path samples ms-deform with the hat-matmul and the port with the 4-corner
@@ -28,6 +29,7 @@ from pctrans_tpu.engine.state import TrainState
 from pctrans_tpu.engine.state import make_train_step as jax_make_train_step
 from pctrans_tpu.losses import build_criterion as jax_build_criterion
 from pctrans_tpu.models import PCTransModel as JaxModel
+from pctrans_tpu.data.fixtures import write_bbbc_fixture
 from pctrans_tpu.models import build_model_config as jax_model_config
 from pctrans_torch import config
 from pctrans_torch.data.synthetic import SyntheticDataset
@@ -35,6 +37,8 @@ from pctrans_torch.data.build import PrefetchLoader
 from pctrans_torch.engine import checkpoint as ckpt
 from pctrans_torch.engine.evaluator import Evaluator
 from pctrans_torch.engine.trainer import Trainer
+from pctrans_torch.data.synthetic import nuclei_scene_rule
+from pctrans_torch.inference import metrics_bbbc as mb
 from pctrans_torch.inference import metrics_cvppp as mc
 from pctrans_torch.models import PCTransModel
 from pctrans_torch.weights import load_flax_variables
@@ -216,3 +220,98 @@ def test_unported_trainer_settings_raise(tmp_path, key, value, item):
     cfg = config.load_cfg(opts=tiny_opts(tmp_path) + [key, value])
     with pytest.raises(NotImplementedError, match=f"item {item}"):
         Trainer(cfg, mode="train", device="cpu")
+
+
+BBBC_METRICS = {"AJI", "F1", "detF1", "PQ"}
+
+
+def bbbc_opts(out: Path, data_type="synthetic_bbbc"):
+    """The tiny config on 64x64 nuclei scenes, 2 iterations, a checkpoint
+    and a validation at 2."""
+    return tiny_opts(out) + ["DATASET.DATA_TYPE", data_type, "SOLVER.ITERATION_TOTAL", "2",
+                             "SOLVER.ITERATION_VAL", "2", "INFERENCE.SAMPLES_PER_BATCH", "2"]
+
+
+@pytest.fixture(scope="module")
+def bbbc_run(tmp_path_factory):
+    tmp = tmp_path_factory.mktemp("bbbc")
+    trainer = main_torch.main(["--device", "cpu", "--opts", *bbbc_opts(tmp)])
+    return tmp, trainer
+
+
+def test_bbbc_trains_validates_with_aji_and_keeps_the_best(bbbc_run):
+    tmp, trainer = bbbc_run
+    assert trainer.dataset == "bbbc" and trainer.evaluator.threshold == 0.05
+    lines = [json.loads(l) for l in (tmp / "out" / "metrics.jsonl").read_text().splitlines()]
+    assert [r["iter"] for r in lines if "eval" not in r] == [0, 1]
+    evals = [r["eval"] for r in lines if "eval" in r]
+    assert len(evals) == 1 and set(evals[0]) == BBBC_METRICS | {f"{k}_std" for k in BBBC_METRICS}
+    log = (tmp / "test" / "logging.txt").read_text().splitlines()
+    assert log[0] == "val_000002"
+    assert [float(v) for v in log[1].split()] == [evals[0][k] for k in ("AJI", "F1", "detF1", "PQ")]
+    assert trainer.best_val == evals[0]["AJI"]
+    best = torch.load(tmp / "out" / "checkpoint_best.pth.tar", weights_only=True)
+    assert best["iteration"] == 2
+    assert sorted(f for f in os.listdir(tmp / "out") if f.endswith(".pth.tar")) == [
+        "checkpoint_000002.pth.tar", "checkpoint_best.pth.tar"]
+    images = np.random.RandomState(2).randn(2, HW, HW, 3).astype(np.float32)
+    for ds in (None, "bbbc", "cvppp"):
+        labels = trainer.predict_labels(images, ds)
+        assert labels.shape == (2, HW, HW) and labels.dtype == np.int16
+
+
+def test_eval_torch_routes_synthetic_bbbc_to_test_bbbc(bbbc_run):
+    tmp, trainer = bbbc_run
+    records = eval_torch.main(["--start", "0", "--device", "cpu",
+                               "--opts", *bbbc_opts(tmp)])
+    assert [r["iter"] for r in records] == [2]
+    assert set(records[0]) == {"iter"} | BBBC_METRICS | {f"{k}_std" for k in BBBC_METRICS}
+    assert all(np.isfinite(v) for v in records[0].values())
+    log = (tmp / "test" / "logging.txt").read_text().splitlines()
+    assert log[-2] == "checkpoint_000002.pth.tar" and len(log[-1].split()) == 4
+
+
+def test_main_torch_inference_dispatches_as_the_jax_script(bbbc_run, tmp_path):
+    """``--inference``: BBBC scores test_bbbc over its test split; a type with
+    no inference path (synthetic_bbbc, as in scripts/main.py) raises."""
+    tmp, _ = bbbc_run
+    ckpt_path = str(tmp / "out" / "checkpoint_best.pth.tar")
+    write_bbbc_fixture(str(tmp_path / "bbbc"), n_train=1, n_val=1, n_test=3, size=(48, 56))
+    opts = bbbc_opts(tmp_path, "BBBC") + ["DATASET.INPUT_PATH", str(tmp_path / "bbbc")]
+    trainer = main_torch.main(["--inference", "--checkpoint", ckpt_path, "--device", "cpu",
+                               "--opts", *opts])
+    log = (tmp_path / "test" / "logging.txt").read_text().splitlines()
+    assert log[0] == "checkpoint_best.pth.tar" and len(log[1].split()) == 4
+    assert trainer.dataset == "bbbc"
+    with pytest.raises(ValueError, match="No inference path for DATA_TYPE=synthetic_bbbc"):
+        main_torch.main(["--inference", "--checkpoint", ckpt_path, "--device", "cpu",
+                         "--opts", *bbbc_opts(tmp_path)])
+
+
+def test_test_bbbc_scores_only_the_valid_rows():
+    """5 nuclei scenes at batch 4: test_bbbc scores 5 images, not the three
+    copies of image 4 that pad the second batch."""
+    cfg = config.ModelConfig(hidden_dim=32, conv_dim=32, mask_dim=8, num_queries=10,
+                             nheads=4, dim_feedforward=64, enc_layers=1, dec_layers=3,
+                             backbone_depth=14, head_norm="GN")
+    ev = Evaluator(PCTransModel(cfg, generator=torch.Generator().manual_seed(3)),
+                   top_k=4, dataset="bbbc")
+    n_inst, radius = nuclei_scene_rule((HW, HW))
+    loader = PrefetchLoader(SyntheticDataset((HW, HW), length=5, seed=1, n_instances=n_inst,
+                                             radius_px=radius),
+                            4, shuffle=False, loop=False, drop_last=False, pad_last=True)
+    batches = list(loader)
+    loader.close()
+    assert [int(b["_num_valid"]) for b in batches] == [4, 1]
+    scores = []
+    for batch in batches:
+        for seg, gt in zip(ev.predict_labels(batch["image"]), batch["label"]):
+            gt, seg = mb.remap_label(gt), mb.remap_label(seg)
+            scores.append([mb.agg_jc_index(gt, seg), mb.pixel_f1(gt, seg),
+                           *mb.get_fast_pq(gt, seg)[0][::2]])
+    res = ev.test_bbbc(batches)
+    valid = np.array(scores[:5])
+    assert res == {k: f(valid[:, i]) for i, k in enumerate(("AJI", "F1", "detF1", "PQ"))
+                   for k, f in ((k, lambda v: float(np.mean(v))),
+                                (f"{k}_std", lambda v: float(np.std(v))))}
+    assert not np.allclose(np.mean(scores, axis=0), valid.mean(axis=0))
