@@ -49,6 +49,13 @@ Phases:
      448x448 scenes, with launch counters (K1 = K2 = 6 per step, K3 = 0),
      then K2 gated and timed on the value, locations, weights and output
      gradients the warm-up step gave it;
+  7b. the bf16 recipe trained under the sampled point modes: 1 + 3 steps
+     each of ``shared``, ``weighted`` and ``topk`` (bf16 sampling), then of
+     the published estimator (``exact``, CANDIDATE_RATIO 3, EXACT_TARGETS,
+     f32 sampling, UPSAMPLE2X): host ms per step, device ms, idle share,
+     peak GiB, K1/K2 launches per step (6 each); then the criterion on one
+     step's outputs, targets and draws on the card and on a CPU copy: each
+     loss and each lane's matched cost within rel 1e-4;
   8. the entry points as users run them: ``scripts/main_torch.py`` with the
      two CVPPP YAMLs on synthetic data (4 bf16 iterations at 448x448 batch
      2, checkpoints at 2 and 4, validation at 4) under
@@ -60,6 +67,13 @@ Phases:
      and a validation at 2 that runs ``test_bbbc``, writes AJI to
      ``logging.txt`` and keeps ``checkpoint_best``; K1 = K2 = 6 per step)
      and ``eval_torch.py --name bbbc`` over that checkpoint;
+  8c. ``main_torch.py`` with the CVPPP YAMLs under the other settings (the
+     reference estimator, WarmupCosineLR, gradient clipping, SWA from
+     iteration 2 merged every iteration with a 2-batch BatchNorm refresh,
+     TRANSFER_UINT8): 4 iterations, checkpoints at 2 and 4,
+     ``checkpoint_swa.pth.tar`` written, every logged LR the one the
+     optimizer applied; then ``eval_torch.py --checkpoint`` over the SWA
+     checkpoint (K1 = 6, K3 = 10, K4 = 1 per forward);
   9. one JSON line of kernel results (each with its bound on the card and,
      where one PyTorch call computes the same function, that call's time),
      then the final status line.
@@ -99,6 +113,23 @@ BBBC_BATCH = 2                 # INFERENCE.SAMPLES_PER_BATCH of the BBBC recipe
 BBBC_HW = (520, 696)           # a BBBC039 image
 BBBC_TOP_K = 160               # INFERENCE.TOP_K of the BBBC recipe
 BBBC_ENTRY_ITERS = 2           # iterations of the BBBC entry-point run
+SAMPLED_STEPS = 3              # counted per point mode (phase 7b), after one warm-up
+# MODEL.MASK_FORMER.TPU_RECIPE of the published PCTrans training estimator
+# (pctrans_tpu/config/defaults.py:134-139), UPSAMPLE2X aside
+REFERENCE_ESTIMATOR = dict(point_select="exact", candidate_ratio=3.0,
+                           exact_targets=True, sample_dtype="float32")
+# phase 8c's --opts: the reference estimator and the other SOLVER settings
+SETTINGS_OPTS = ["MODEL.MASK_FORMER.TPU_RECIPE.POINT_SELECT", "exact",
+                 "MODEL.MASK_FORMER.TPU_RECIPE.CANDIDATE_RATIO", "3.0",
+                 "MODEL.MASK_FORMER.TPU_RECIPE.EXACT_TARGETS", "True",
+                 "MODEL.MASK_FORMER.TPU_RECIPE.SAMPLE_DTYPE", "float32",
+                 "MODEL.MASK_FORMER.TPU_RECIPE.UPSAMPLE2X", "True",
+                 "SOLVER.LR_SCHEDULER_NAME", "WarmupCosineLR",
+                 "SOLVER.CLIP_GRADIENTS.ENABLED", "True",
+                 "SOLVER.SWA.ENABLED", "True", "SOLVER.SWA.START_ITER", "2",
+                 "SOLVER.SWA.MERGE_ITER", "1", "SOLVER.SWA.BN_UPDATE_ITER", "2",
+                 "DATASET.TRANSFER_UINT8", "True"]
+CRITERION_RTOL = 1e-4          # each loss and the matched cost, card against CPU
 # H100 SXM peaks (NVIDIA data sheet) for the bounds: HBM bytes per second,
 # f32 FLOP/s outside the tensor cores, dense TF32 FLOP/s on the tensor cores
 PEAK_BYTES_PER_S = 3.35e12
@@ -1302,6 +1333,217 @@ def entry_points_bbbc(card):
     return launches
 
 
+def criterion_card_vs_cpu(crit, outputs, targets, reid, draws) -> float:
+    """The criterion on the card and on a CPU copy of the same outputs,
+    targets and draws: every loss (both at the card's assignment) and each
+    lane's matched cost (each side at its own) within CRITERION_RTOL.
+    Returns the largest relative difference."""
+    def cpu(t):
+        return t.detach().cpu()
+
+    def copy(tree):
+        return {k: [cpu(a) for a in v] if isinstance(v, list) else cpu(v)
+                for k, v in tree.items() if v is not None}
+
+    def matched(stacked, tgt, d):
+        idx, costs, _ = crit.match_with_costs(stacked, tgt, d)
+        lane = torch.gather(costs, 2, idx[:, :, None, :]).squeeze(2)     # [L, B, G]
+        return idx, (lane * tgt["valid"]).sum(-1).double()
+
+    with torch.no_grad():
+        stacked = torch.stack(outputs["aux_masks"] + [outputs["pred_masks"]])
+        idx, cost = matched(stacked, targets, draws)
+        _, losses, _ = crit(outputs, targets, reid, draws, indices=idx)
+        c_out, c_tgt, c_draws = copy(outputs), copy(targets), copy(draws)
+        c_idx, c_cost = matched(torch.stack(c_out["aux_masks"] + [c_out["pred_masks"]]),
+                                c_tgt, c_draws)
+        _, c_losses, _ = crit(c_out, c_tgt, cpu(reid), c_draws, indices=cpu(idx))
+    worst = 0.0
+    pairs = [(f"matched cost {l},{b}", float(cost[l, b]), float(c_cost[l, b]))
+             for l in range(cost.shape[0]) for b in range(cost.shape[1])]
+    pairs += [(k, float(v), float(c_losses[k])) for k, v in losses.items()]
+    for name, a, b in pairs:
+        rel = abs(a - b) / max(abs(b), 1e-6)
+        worst = max(worst, rel)
+        if not (math.isfinite(a) and rel <= CRITERION_RTOL):
+            raise AssertionError(f"criterion card vs CPU, {name}: {a} against {b}")
+    flips = int((idx.cpu() != c_idx)[:, targets["valid"].cpu()].sum())
+    print(f"  criterion card vs CPU: {len(losses)} losses and {cost.numel()} matched costs "
+          f"within rel {worst:.2e}; {flips} slots matched to another query at equal cost")
+    return worst
+
+
+def train_sampled_modes(dev, card) -> dict:
+    """Phase 7b: the bf16 recipe's train step under the sampled point modes
+    and under the published estimator (``REFERENCE_ESTIMATOR`` with
+    UPSAMPLE2X).  Returns {mode: (K1, K2) launches over the counted steps}."""
+    from pctrans_torch.config import CVPPP_RECIPE
+    from pctrans_torch.data.targets import targets_from_labels
+    from pctrans_torch.engine.solver import (CVPPP_SOLVER, build_lr_scheduler,
+                                             build_optimizer)
+    from pctrans_torch.engine.train_step import make_train_step
+    from pctrans_torch.losses.criterion import CVPPP_CRITERION, SetCriterion
+    from pctrans_torch.ops.msdeform import ms_deform_attn, ms_deform_attn_backward
+    from pctrans_torch.ops.render import dynamic_mask_render
+
+    modes = [(m, {"point_select": m}, False) for m in ("shared", "weighted", "topk")]
+    modes.append(("exact (the published estimator)", REFERENCE_ESTIMATOR, True))
+    counters = (ms_deform_attn, ms_deform_attn_backward, dynamic_mask_render)
+    c = CVPPP_RECIPE
+    out = {}
+    for name, over, upsample2x in modes:
+        config = dataclasses.replace(CVPPP_RECIPE, upsample2x=upsample2x)
+        model = build_model(config, dev)
+        crit = SetCriterion(dataclasses.replace(CVPPP_CRITERION, **over))
+        gen = torch.Generator(device=dev).manual_seed(SEED)
+        opt = build_optimizer(model, CVPPP_SOLVER)
+        step = make_train_step(model, crit, opt, build_lr_scheduler(opt, CVPPP_SOLVER),
+                               MAX_INSTANCES, gen, solver=CVPPP_SOLVER)
+        batches = list(scene_batches(SAMPLED_STEPS + 3, SEED + 5, TRAIN_BATCH, TRAIN_HW))
+        step(batches[0])
+        torch.cuda.synchronize()
+        for fn in counters:
+            fn.launches = 0
+        torch.cuda.reset_peak_memory_stats(dev)
+        step_ms = []
+        for batch in batches[1:1 + SAMPLED_STEPS]:
+            t0 = time.perf_counter()
+            metrics = step(batch)
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+        launches = [fn.launches for fn in counters]
+        peak = torch.cuda.max_memory_allocated(dev)
+        if launches != [c.enc_layers * SAMPLED_STEPS] * 2 + [0]:
+            raise AssertionError(f"{name}: launches K1, K2, K3 {launches} in "
+                                 f"{SAMPLED_STEPS} steps")
+        losses = {k: float(v) for k, v in metrics.items()}
+        if not all(math.isfinite(v) for v in losses.values()):
+            raise AssertionError(f"{name}: non-finite losses {losses}")
+
+        profiled = itertools.cycle(batches[1 + SAMPLED_STEPS:])
+
+        def why_again(events):
+            k1 = sum(e.count for e in events if "msdeform_fwd_kernel" in e.key)
+            return None if abs(k1 - c.enc_layers) <= 1 else \
+                f"it holds {k1} of K1's {c.enc_layers} launches"
+
+        events = sorted(trace_kernels(lambda: step(next(profiled)), 1, why_again),
+                        key=lambda e: -e.self_device_time_total)
+        dev_ms = sum(e.self_device_time_total for e in events) / 1e3
+        host_ms = statistics.median(step_ms)
+        print(f"{name}: train step {host_ms:.3f} ms (host clock, median of {SAMPLED_STEPS}: "
+              + " ".join(f"{t:.1f}" for t in step_ms) + f"), {dev_ms:.3f} ms device "
+              f"({1 - dev_ms / host_ms:.1%} idle), peak {peak / 2**30:.3f} GiB, launches "
+              f"per step K1 {launches[0] // SAMPLED_STEPS}, K2 {launches[1] // SAMPLED_STEPS}, "
+              f"loss {losses['loss']:.4f}, on {card}")
+        print("  largest device kernels (ms per step, launches): " + "; ".join(
+            f"{e.self_device_time_total / 1e3:.3f} x{e.count} {e.key[:60]}"
+            for e in events[:6]))
+
+        batch = batches[-1]
+        labels = torch.as_tensor(batch["label"]).to(dev).int()
+        targets = targets_from_labels(labels, MAX_INSTANCES)
+        reid, draws = crit.draws(TRAIN_BATCH, MAX_INSTANCES, c.num_queries, gen, dev)
+        model.train()
+        with torch.no_grad():
+            outputs = model(torch.as_tensor(batch["image"]).to(dev).float())
+        criterion_card_vs_cpu(crit, outputs, targets, reid, draws)
+        out[name] = tuple(launches[:2])
+        del model, opt, step, outputs
+        torch.cuda.empty_cache()
+    return out
+
+
+def entry_points_settings(card):
+    """Phase 8c: ``scripts/main_torch.py`` with the CVPPP YAMLs under
+    ``SETTINGS_OPTS`` (4 iterations, checkpoints at 2 and 4), then
+    ``scripts/eval_torch.py --checkpoint`` over ``checkpoint_swa.pth.tar``.
+    Returns the run's and the evaluation's launches."""
+    import pctrans_torch.engine.trainer as trainer_module
+    from pctrans_torch.ops.msdeform import ms_deform_attn, ms_deform_attn_backward
+    from pctrans_torch.ops.render import dynamic_mask_render
+    from pctrans_torch.ops.resize_binarize import resize_bilinear_binarize
+
+    sys.path.insert(0, str(REPO / "scripts"))
+    import eval_torch
+    import main_torch
+
+    counters = (ms_deform_attn, ms_deform_attn_backward, dynamic_mask_render,
+                resize_bilinear_binarize)
+    applied = []                      # the rate each update ran at
+    make_step = trainer_module.make_train_step
+
+    def recording_steps(*args, **kwargs):
+        step, optimizer = make_step(*args, **kwargs), args[2]
+
+        def run(batch, **kw):
+            if batch["image"].dtype != np.uint8 or batch["label"].dtype != np.uint8:
+                raise AssertionError("TRANSFER_UINT8: the step got "
+                                     f"{batch['image'].dtype} / {batch['label'].dtype}")
+            applied.append(optimizer.param_groups[0]["lr"])
+            return step(batch, **kw)
+        return run
+
+    (REPO / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=REPO / "build") as tmp:
+        cfg_args = ["--config-base", str(REPO / "configs/CVPPP/CVPPP-PCTrans-Base.yaml"),
+                    "--config-file", str(REPO / "configs/CVPPP/CVPPP-PCTrans.yaml")]
+        opts = ["DATASET.DATA_TYPE", "synthetic",
+                "SOLVER.ITERATION_TOTAL", str(ENTRY_ITERS), "SOLVER.ITERATION_SAVE", "2",
+                "SOLVER.START_SAVE", "0", "SOLVER.ITERATION_VAL", "0",
+                "DATASET.OUTPUT_PATH", tmp, "INFERENCE.OUTPUT_PATH", f"{tmp}/test",
+                "MONITOR.TENSORBOARD", "False", "MONITOR.ITERATION_NUM", "[1, 200]",
+                *SETTINGS_OPTS]
+        for fn in counters:
+            fn.launches = 0
+        trainer_module.make_train_step = recording_steps
+        try:
+            t0 = time.perf_counter()
+            trainer = main_torch.main(cfg_args + ["--opts", *opts])
+            train_wall = time.perf_counter() - t0
+        finally:
+            trainer_module.make_train_step = make_step
+        launches = [fn.launches for fn in counters]
+        c, cfg = trainer.model_config, trainer.cfg
+        # 2 BatchNorm-refresh forwards at each SWA save: after 2 and 4, and at the end
+        refresh = 3 * cfg.SOLVER.SWA.BN_UPDATE_ITER
+        print(f"main_torch.py under {' '.join(SETTINGS_OPTS)}: {ENTRY_ITERS} iterations, "
+              f"launches K1 {launches[0]}, K2 {launches[1]}, K3 {launches[2]}, K4 "
+              f"{launches[3]}; wall {train_wall:.3f} s, on {card}")
+        if (not c.upsample2x or trainer.solver.clip_type != "full_model"
+                or launches != [c.enc_layers * (ENTRY_ITERS + refresh),
+                                c.enc_layers * ENTRY_ITERS, 0, 0]):
+            raise AssertionError("phase 8c's run is not the configured one")
+        lines = [json.loads(l) for l in Path(tmp, "metrics.jsonl").read_text().splitlines()]
+        logged = [r["lr"] for r in lines]
+        if [r["iter"] for r in lines] != list(range(ENTRY_ITERS)) or len(applied) != \
+                ENTRY_ITERS or any(abs(a - b) > 1e-9 * b for a, b in zip(logged, applied)) \
+                or not all(math.isfinite(v) for r in lines for v in r.values()):
+            raise AssertionError(f"metrics.jsonl {lines}, rates applied {applied}")
+        saved = sorted(f for f in os.listdir(tmp) if f.endswith(".pth.tar"))
+        if saved != ["checkpoint_000002.pth.tar", "checkpoint_000004.pth.tar",
+                     "checkpoint_swa.pth.tar"]:
+            raise AssertionError(f"checkpoints {saved}")
+        print(f"rates logged {logged}, each the one the optimizer applied; "
+              f"checkpoints {saved}")
+
+        for fn in counters:
+            fn.launches = 0
+        t0 = time.perf_counter()
+        records = eval_torch.main(cfg_args + ["--checkpoint", f"{tmp}/checkpoint_swa.pth.tar",
+                                              "--opts", *opts])
+        sweep_wall = time.perf_counter() - t0
+        k1, k2, k3, k4 = [fn.launches for fn in counters]
+        print(f"eval_torch.py --checkpoint checkpoint_swa.pth.tar: {records}; launches K1 "
+              f"{k1}, K3 {k3}, K4 {k4} (one per forward), K2 {k2}; wall {sweep_wall:.3f} s")
+        if [r["iter"] for r in records] != [ENTRY_ITERS] or \
+                not all(math.isfinite(v) for v in records[0].values()):
+            raise AssertionError("eval_torch.py did not score the SWA checkpoint")
+        if k4 < 1 or [k1, k3, k2] != [c.enc_layers * k4, (c.dec_layers + 1) * k4, 0]:
+            raise AssertionError("phase 8c's evaluation launch counts do not match")
+    return launches, (k1, k3, k4)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -1343,13 +1585,17 @@ def main() -> int:
     bbbc_eval = slice_bbbc(dev, card)
     (k1, k2, _), k2_model = train_bf16(dev, card)
     k2_gate.update(k2_model)
+    sampled = train_sampled_modes(dev, card)
     k5 = entry_points(card)
     bbbc_entry = entry_points_bbbc(card)
+    settings_train, settings_eval = entry_points_settings(card)
     print(f"main paths: train K1 {k1}, K2 {k2}; eval K1 {k1_eval}, K3 {k3}, "
           f"K4 {k4}; entry points under PCTRANS_MSDA_IMPL=pallas K5 {k5}; BBBC eval "
-          f"K1, K3, K4 {bbbc_eval}; BBBC entry points K1, K2, K3, K4 {bbbc_entry} (the "
-          "kernels line reports K1/K2 from train, K3/K4 from the CVPPP eval, K5 from the "
-          "entry-point run)")
+          f"K1, K3, K4 {bbbc_eval}; BBBC entry points K1, K2, K3, K4 {bbbc_entry}; "
+          f"sampled point modes K1, K2 {sampled}; entry points under the other settings "
+          f"K1, K2, K3, K4 {settings_train}, their SWA evaluation K1, K3, K4 "
+          f"{settings_eval} (the kernels line reports K1/K2 from train, K3/K4 from the "
+          "CVPPP eval, K5 from the entry-point run)")
     launches = [k1, k2, k3, k4, k5]
 
     meta = [("K1 ms_deform_attn forward", "pctrans_torch/csrc/msdeform_fwd.cu",

@@ -2,7 +2,8 @@
 ``pctrans_tpu/engine/checkpoint.py``, in ``torch.save`` files).
 
 Each checkpoint is ``<output_dir>/checkpoint_%06d.pth.tar`` (or
-``checkpoint_best.pth.tar``) holding ``{iteration, model, optimizer,
+``checkpoint_best.pth.tar``, or ``checkpoint_swa.pth.tar``: the SWA
+weights) holding ``{iteration, model, optimizer,
 lr_scheduler}``: the model's ``state_dict`` (BatchNorm running statistics
 included), AdamW's moments and step, and the LR scheduler's position.
 ``iteration`` counts the optimizer updates done.
@@ -25,9 +26,15 @@ _RE = re.compile(r"checkpoint_(\d{6,})\.pth\.tar$")
 def save_checkpoint(output_dir: str, model: nn.Module,
                     optimizer: Optional[torch.optim.Optimizer],
                     scheduler: Optional[torch.optim.lr_scheduler.LRScheduler],
-                    iteration: int, is_best: bool = False) -> str:
+                    iteration: int, is_best: bool = False,
+                    name: Optional[str] = None) -> str:
+    """``name`` (``checkpoint_swa``, say) replaces the numbered or best
+    file name; ``.pth.tar`` is appended."""
     os.makedirs(output_dir, exist_ok=True)
-    name = "checkpoint_best.pth.tar" if is_best else _FMT % iteration
+    if name is not None:
+        name += ".pth.tar"
+    else:
+        name = "checkpoint_best.pth.tar" if is_best else _FMT % iteration
     path = os.path.abspath(os.path.join(output_dir, name))
     tmp = f"{path}.{os.getpid()}.tmp"
     torch.save({"iteration": int(iteration), "model": model.state_dict(),

@@ -1,13 +1,17 @@
-"""Dense Hungarian matcher (mirror of ``pctrans_tpu/losses/matcher.py:26-45,
-74-98``): CE + dice costs evaluated at every pixel of the prediction grid,
-one assignment per (image, layer) lane.
+"""Hungarian matchers (mirror of ``pctrans_tpu/losses/matcher.py``): CE +
+dice costs evaluated at every pixel of the prediction grid (the dense mode)
+or at uniform random points shared by an image's masks (the point-sampled
+``Point_HungarianMatcher``), one assignment per lane on the host.
 """
 
 from __future__ import annotations
 
+from typing import Tuple
+
 import torch
 
 from ..ops.lap import match_padded
+from ..ops.point_sample import point_sample, sample_label_onehot
 
 
 def softplus(x: torch.Tensor) -> torch.Tensor:
@@ -46,12 +50,31 @@ def pair_costs(out_pts: torch.Tensor, tgt_pts: torch.Tensor,
 
 
 @torch.no_grad()
-def dense_matcher_indices(pred_logits: torch.Tensor, tgt_dense: torch.Tensor,
-                          valid: torch.Tensor, cost_mask: float = 5.0,
-                          cost_dice: float = 5.0) -> torch.Tensor:
+def dense_matcher_costs(pred_logits: torch.Tensor, tgt_dense: torch.Tensor,
+                        valid: torch.Tensor, cost_mask: float = 5.0,
+                        cost_dice: float = 5.0) -> Tuple[torch.Tensor, torch.Tensor]:
     """pred_logits [N, Q, h, w] (in the sample dtype), tgt_dense [N, G, h*w]
-    GT on the same grid, valid [N, G].  Returns query4gt int64 [N, G]."""
+    GT on the same grid, valid [N, G].  Returns (query4gt int64 [N, G],
+    cost [N, Q, G] f32)."""
     N, Q = pred_logits.shape[:2]
     cost = pair_costs(pred_logits.reshape(N, Q, -1),
                       tgt_dense.to(pred_logits.dtype), cost_mask, cost_dice)
-    return match_padded(cost, valid)
+    return match_padded(cost, valid), cost
+
+
+
+@torch.no_grad()
+def point_matcher_costs(pred_logits: torch.Tensor, gt_seg: torch.Tensor,
+                        valid: torch.Tensor, coords: torch.Tensor,
+                        cost_mask: float = 5.0, cost_dice: float = 5.0
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``match_one_image`` per lane (``matcher.py:48-71, 102-116``):
+    pred_logits [N, Q, h, w] in the sample dtype, gt_seg [N, H, W] int,
+    valid [N, G], coords [N, P, 2] uniform draws shared by the lane's masks.
+    All Q masks are sampled as channels of one map (Q > 8: the generator
+    rounding).  Returns (query4gt int64 [N, G], cost [N, Q, G] f32)."""
+    G = valid.shape[1]
+    out_pts = point_sample(pred_logits, coords)                    # [N, Q, P]
+    tgt_pts = sample_label_onehot(gt_seg, coords, G).to(pred_logits.dtype)
+    cost = pair_costs(out_pts, tgt_pts, cost_mask, cost_dice)
+    return match_padded(cost, valid), cost

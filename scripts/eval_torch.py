@@ -7,7 +7,12 @@ restored into it.
 
 Usage:
   python scripts/eval_torch.py --config-base ... --config-file ... \
-      [--start 51000] [--out sweep.json] [--device cuda|cpu] [--opts ...]
+      [--start 51000 | --checkpoint PATH] [--out sweep.json] \
+      [--device cuda|cpu] [--opts ...]
+
+``--checkpoint`` scores that one file (``checkpoint_swa.pth.tar``,
+``checkpoint_best.pth.tar``) instead of the numbered sweep; its record's
+``iter`` is the iteration saved in it.
 
 ``--name bbbc`` (or DATASET.DATA_TYPE ``BBBC`` / ``synthetic_bbbc``) scores
 ``test_bbbc`` over the test split, otherwise ``eval_cvppp`` over the val
@@ -34,6 +39,8 @@ def get_args(argv=None):
     p.add_argument("--name", type=str, default="cvppp")
     p.add_argument("--start", type=int, default=51000,
                    help="first checkpoint iteration to evaluate")
+    p.add_argument("--checkpoint", type=str, default=None,
+                   help="score this checkpoint file instead of the sweep")
     p.add_argument("--out", type=str, default=None,
                    help="write the sweep as a JSON list of {iter, **metrics}")
     p.add_argument("--device", type=str, default="cuda")
@@ -49,21 +56,22 @@ def main(argv=None):
     cfg.freeze()
 
     trainer = Trainer(cfg, mode="test", device=args.device)
-    sweep = [c for c in ckpt.list_checkpoints(model_dir)
-             if ckpt.checkpoint_iteration(c) >= args.start]
+    sweep = [args.checkpoint] if args.checkpoint else [
+        c for c in ckpt.list_checkpoints(model_dir)
+        if ckpt.checkpoint_iteration(c) >= args.start]
     if not sweep:
         print(f"No checkpoints >= iter {args.start} in {model_dir}")
         return []
     records = []
     for path in sweep:
-        ckpt.restore_checkpoint(path, trainer.model)
+        iteration = ckpt.restore_checkpoint(path, trainer.model)
         name = os.path.basename(path)
         if args.name == "bbbc" or cfg.DATASET.DATA_TYPE in ("BBBC", "synthetic_bbbc"):
             res = trainer.test_bbbc(model_name=name)
         else:
             res = trainer.eval_cvppp(model_name=name)
         print(name, res)
-        records.append({"iter": ckpt.checkpoint_iteration(path),
+        records.append({"iter": iteration,
                         **{k: float(v) for k, v in res.items()}})
     if args.out:
         with open(args.out, "w") as f:

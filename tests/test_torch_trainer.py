@@ -212,8 +212,6 @@ def test_cli_distributed_raises(tmp_path):
 
 
 @pytest.mark.parametrize("key,value,item", [
-    ("SOLVER.SWA.ENABLED", "True", "14a"),
-    ("DATASET.TRANSFER_UINT8", "True", "15a"),
     ("MONITOR.PROFILE_ITERS", "[1, 2]", "23"),
 ])
 def test_unported_trainer_settings_raise(tmp_path, key, value, item):
