@@ -1,5 +1,6 @@
 """On-card smoke run of the PyTorch/CUDA port's CVPPP and BBBC eval and train
-paths.
+paths, and of the alternative components (Swin-T, the FPN decoders, the DETR
+predictor, the stride-8 FPN swap).
 
     python3 chip_smoke.py        # one CUDA card; exits non-zero on any failure
 
@@ -74,7 +75,24 @@ Phases:
      ``checkpoint_swa.pth.tar`` written, every logged LR the one the
      optimizer applied; then ``eval_torch.py --checkpoint`` over the SWA
      checkpoint (K1 = 6, K3 = 10, K4 = 1 per forward);
-  9. one JSON line of kernel results (each with its bound on the card and,
+  9. the Swin-T PCTrans (the CVPPP recipe with ``MODEL.BACKBONE.NAME
+     D2SwinTransformer``: embed 96, depths 2/2/6/2, heads 3/6/12/24,
+     window 7, drop path 0.3) at full width: the f32 forward kernels vs
+     twins; the bf16 evaluator over three batches of four 530x500 scenes
+     (K1 = 6, K3 = 10, K4 = 1 per forward; labels against the numpy oracle)
+     with K1 gated and timed on its own inputs; 1 + 3 bf16 train steps at
+     448x448 batch 2 with drop path on (K1 = K2 = 6 per step) with K2 gated
+     on one step's own inputs; then ``main_torch.py --opts
+     MODEL.BACKBONE.NAME D2SwinTransformer`` (2 iterations, a checkpoint at
+     2) and ``eval_torch.py`` over that checkpoint;
+  9b. the other components at the recipe's width, each with its f32
+     forward kernels vs twins and one bf16 eval batch of four 530x500
+     scenes (labels against the numpy oracle): R-50 + ``fpn_legacy_swap``
+     (K1 = 6, K3 = 10, K4 = 1 per forward; K3 and K4 gated and timed on the
+     stride-8 grid's own inputs, 67x63), R-50 + ``BasePixelDecoder`` (K3,
+     K4), R-50 + ``TransformerEncoderPixelDecoder`` +
+     ``StandardTransformerDecoder`` (K4);
+  10. one JSON line of kernel results (each with its bound on the card and,
      where one PyTorch call computes the same function, that call's time),
      then the final status line.
 
@@ -724,10 +742,15 @@ def attn_mask_flips(masks_a, masks_b, hw):
     return flips
 
 
-def slice_f32(dev):
+def slice_f32(dev, config=None, name="f32 slice"):
+    """The f32 forward of ``config`` (by default the CVPPP recipe) through
+    the kernels and through the twins on one batch of four 530x500 scenes:
+    each mask prediction within rel-Fro 1e-3 up to the first
+    attention-mask flip."""
     from pctrans_torch.config import CVPPP_RECIPE
 
-    model = build_model(dataclasses.replace(CVPPP_RECIPE, dtype="float32"), dev)
+    config = config or CVPPP_RECIPE
+    model = build_model(dataclasses.replace(config, dtype="float32"), dev)
     batch = next(scene_batches(1, SEED))
     x = torch.from_numpy(batch["image"]).to(dev)
     with torch.inference_mode():
@@ -736,22 +759,25 @@ def slice_f32(dev):
     masks_out = out["aux_masks"] + [out["pred_masks"]]
     masks_ref = ref["aux_masks"] + [ref["pred_masks"]]
     errs = [rel_fro(a.float(), b.float()) for a, b in zip(masks_out, masks_ref)]
-    flips = attn_mask_flips(masks_out, masks_ref, IMAGE_HW)
     # The forward is discontinuous at the attention-mask threshold
     # (sigmoid < 0.5): mask j's bits steer decoder layer j, so a bit flipped
     # by summation order lets the two runs part from layer j on.  Gate every
     # mask up to and including the first one with a flip (all of them,
-    # pred_masks included, when none flips).
+    # pred_masks included, when none flips).  The DETR predictor masks no
+    # attention.
+    flips = (attn_mask_flips(masks_out, masks_ref, IMAGE_HW) if "reference_points" in out
+             else [0] * (len(errs) - 1))
     n_gated = next((j for j, f in enumerate(flips) if f), len(errs) - 1) + 1
-    print("f32 slice, kernels vs twins, rel-Fro per mask prediction: "
+    print(f"{name}, kernels vs twins, rel-Fro per mask prediction "
+          f"{tuple(out['pred_masks'].shape)}: "
           + " ".join(f"{e:.2e}" for e in errs)
           + "; attention-mask bits flipped per layer: "
           + " ".join(map(str, flips))
           + f"; gated (<= 1e-3): the first {n_gated} of {len(errs)}")
     if not all(torch.isfinite(t).all() for t in (out["pred_masks"], ref["pred_masks"])):
-        raise AssertionError("non-finite f32 mask logits")
+        raise AssertionError(f"{name}: non-finite f32 mask logits")
     if not max(errs[:n_gated]) <= 1e-3:
-        raise AssertionError(f"f32 slice masks rel-Fro {max(errs[:n_gated]):.3e} "
+        raise AssertionError(f"{name}: masks rel-Fro {max(errs[:n_gated]):.3e} "
                              "> 1e-3 before the first attention-mask flip")
 
 
@@ -894,7 +920,12 @@ def forward_times(model, x):
                 device_ms(lambda: model(x), reps=5))
 
 
-def slice_bf16(dev, card):
+def slice_bf16(dev, card, config=None, name="bf16 CVPPP", with_k5=True):
+    """The bf16 recipe (or ``config``) as served: the evaluator over three
+    batches of four 530x500 scenes, batch 0's labels against the numpy
+    oracle, the forward's times, K1 gated and timed on the inputs one
+    forward gives it and, ``with_k5``, K5 on those of one forward under
+    ``PCTRANS_MSDA_IMPL=pallas``.  Returns (launches, K1's record, K5's)."""
     import pctrans_torch.models.pixel_decoder as pixel_decoder
     from pctrans_torch.config import CVPPP_RECIPE
     from pctrans_torch.engine.evaluator import Evaluator
@@ -902,16 +933,16 @@ def slice_bf16(dev, card):
     from pctrans_torch.ops.msdeform import (ms_deform_attn, ms_deform_attn_separable,
                                             ms_deform_attn_separable_twin)
 
-    model = build_model(CVPPP_RECIPE, dev)
+    c = config or CVPPP_RECIPE
+    model = build_model(c, dev)
     ev = Evaluator(model, top_k=50)
     batches = list(scene_batches(N_EVAL_BATCHES, SEED + 1))
-    c = CVPPP_RECIPE
     launches, fwd, wall, res = eval_run(
-        f"bf16 CVPPP eval, batch {BATCH}, {IMAGE_HW}", ev, batches, ev.eval_cvppp,
+        f"{name} eval, batch {BATCH}, {IMAGE_HW}", ev, batches, ev.eval_cvppp,
         (c.enc_layers, c.dec_layers + 1, 1))
     print(f"SBD {res['SBD']:.4f}, |DiC| {res['absDiffFG']:.4f} "
           "(random weights: shows only that the chain ran)")
-    check_labels("CVPPP", ev, batches, instance_inference_cvppp)
+    check_labels(name, ev, batches, instance_inference_cvppp)
     x = torch.from_numpy(batches[0]["image"]).to(dev)
     k1_calls = []
 
@@ -934,24 +965,27 @@ def slice_bf16(dev, card):
             raise AssertionError(f"pred_masks shape {tuple(out['pred_masks'].shape)}")
         fwd_ms, fwd_dev = forward_times(model, x)
         k1_model = time_on_model_inputs(
-            "K1", ms_deform_attn, lambda *a: ms_deform_attn(*a, impl="twin"),
+            f"K1 ({name})", ms_deform_attn, lambda *a: ms_deform_attn(*a, impl="twin"),
             "msdeform_fwd_kernel", k1_calls, 1e-2)
+        k5_model = None
+    if with_k5:
         # the same forward under PCTRANS_MSDA_IMPL=pallas: K5's inputs
         k5_calls = []
         pixel_decoder.ms_deform_attn = lambda *a, **k: k5_calls.append(
             (a[0], tuple(a[1]), a[2], a[3])) or ms_deform_attn(*a, **k)
         os.environ["PCTRANS_MSDA_IMPL"] = "pallas"
-        try:
-            model(x)
-        finally:
-            del os.environ["PCTRANS_MSDA_IMPL"]
-            pixel_decoder.ms_deform_attn = ms_deform_attn
-        if len(k5_calls) != c.enc_layers:
-            raise AssertionError(f"{len(k5_calls)} ms-deform calls in one pallas forward")
-        k5_model = time_on_model_inputs("K5", ms_deform_attn_separable,
-                                        ms_deform_attn_separable_twin, K5_KERNEL,
-                                        k5_calls, K5_BF16_TOL)
-    print(f"bf16 CVPPP forward {fwd_ms:.3f} ms/batch of {BATCH} (CUDA events), "
+        with torch.inference_mode():
+            try:
+                model(x)
+            finally:
+                del os.environ["PCTRANS_MSDA_IMPL"]
+                pixel_decoder.ms_deform_attn = ms_deform_attn
+            if len(k5_calls) != c.enc_layers:
+                raise AssertionError(f"{len(k5_calls)} ms-deform calls in one pallas forward")
+            k5_model = time_on_model_inputs("K5", ms_deform_attn_separable,
+                                            ms_deform_attn_separable_twin, K5_KERNEL,
+                                            k5_calls, K5_BF16_TOL)
+    print(f"{name} forward {fwd_ms:.3f} ms/batch of {BATCH} (CUDA events), "
           f"{fwd_dev:.3f} ms of it device time ({1 - fwd_dev / fwd_ms:.1%} "
           f"idle); end to end {N_EVAL_BATCHES * BATCH / wall:.3f} img/s "
           f"({wall:.3f} s wall for {N_EVAL_BATCHES * BATCH} images, {fwd} forwards, "
@@ -1041,7 +1075,12 @@ def train_f32_backward(dev):
                              "with the twin's")
 
 
-def train_bf16(dev, card):
+def train_bf16(dev, card, config=None, n_steps=N_TRAIN_STEPS, name="bf16 train"):
+    """The bf16 recipe (or ``config``) as trained: ``make_train_step`` with
+    AdamW and WarmupPolyLR, one warm-up step then ``n_steps`` counted ones
+    on batches of two 448x448 scenes, with launch counters (K1 = K2 = 6 per
+    step, K3 = 0); then K2 gated and timed on the inputs the warm-up step
+    gave it.  Returns (launches, K2's record)."""
     from pctrans_torch.config import CVPPP_RECIPE
     from pctrans_torch.engine.solver import (CVPPP_SOLVER, build_lr_scheduler,
                                              build_optimizer)
@@ -1051,12 +1090,13 @@ def train_bf16(dev, card):
                                             ms_deform_attn_backward)
     from pctrans_torch.ops.render import dynamic_mask_render
 
-    model = build_model(CVPPP_RECIPE, dev)
+    c = config or CVPPP_RECIPE
+    model = build_model(c, dev)
     opt = build_optimizer(model, CVPPP_SOLVER)
     step = make_train_step(model, SetCriterion(CVPPP_CRITERION), opt,
                            build_lr_scheduler(opt, CVPPP_SOLVER), MAX_INSTANCES,
                            torch.Generator(device=dev).manual_seed(SEED))
-    batches = list(scene_batches(N_TRAIN_STEPS + 3, SEED + 2, TRAIN_BATCH, TRAIN_HW))
+    batches = list(scene_batches(n_steps + 3, SEED + 2, TRAIN_BATCH, TRAIN_HW))
     # the warm-up step, not counted, keeps the inputs it passes to K2
     k2_calls = []
     backward = MSDeformAttnFunction.backward
@@ -1073,7 +1113,7 @@ def train_bf16(dev, card):
     finally:
         MSDeformAttnFunction.backward = staticmethod(backward)
     torch.cuda.synchronize()
-    if len(k2_calls) != CVPPP_RECIPE.enc_layers:
+    if len(k2_calls) != c.enc_layers:
         raise AssertionError(f"{len(k2_calls)} ms-deform backward calls in one step")
     before = {n: p.detach().clone() for n, p in model.named_parameters()}
 
@@ -1082,18 +1122,17 @@ def train_bf16(dev, card):
         fn.launches = 0
     torch.cuda.reset_peak_memory_stats(dev)
     step_ms = []
-    for batch in batches[1:1 + N_TRAIN_STEPS]:
+    for batch in batches[1:1 + n_steps]:
         t0 = time.perf_counter()
         metrics = step(batch)
         torch.cuda.synchronize()
         step_ms.append((time.perf_counter() - t0) * 1e3)
     launches = [fn.launches for fn in counters]
     peak = torch.cuda.max_memory_allocated(dev)
-    c = CVPPP_RECIPE
-    print(f"bf16 train, {N_TRAIN_STEPS} steps of {TRAIN_BATCH}x{TRAIN_HW[0]}x"
+    print(f"{name}, {n_steps} steps of {TRAIN_BATCH}x{TRAIN_HW[0]}x"
           f"{TRAIN_HW[1]}: launches K1 {launches[0]}, K2 {launches[1]}, "
           f"K3 {launches[2]}")
-    if launches != [c.enc_layers * N_TRAIN_STEPS] * 2 + [0]:
+    if launches != [c.enc_layers * n_steps] * 2 + [0]:
         raise AssertionError("launch counts do not match the train steps run")
     losses = {k: float(v) for k, v in metrics.items()}
     if not all(math.isfinite(v) for v in losses.values()):
@@ -1107,7 +1146,7 @@ def train_bf16(dev, card):
     # the steps' device time, from a trace that kept K1's launches (all
     # but one at most)
     n_prof = 2
-    profiled = itertools.cycle(batches[1 + N_TRAIN_STEPS:])
+    profiled = itertools.cycle(batches[1 + n_steps:])
 
     def why_again(events):
         k1_events = sum(e.count for e in events if "msdeform_fwd_kernel" in e.key)
@@ -1119,11 +1158,11 @@ def train_bf16(dev, card):
                     key=lambda e: -e.self_device_time_total)
     dev_ms = sum(e.self_device_time_total for e in events) / n_prof / 1e3
     host_ms = statistics.median(step_ms)
-    print(f"bf16 train step {host_ms:.3f} ms (host clock, median of "
-          f"{N_TRAIN_STEPS}: " + " ".join(f"{t:.1f}" for t in step_ms)
+    print(f"{name} step {host_ms:.3f} ms (host clock, median of "
+          f"{n_steps}: " + " ".join(f"{t:.1f}" for t in step_ms)
           + f"), {dev_ms:.3f} ms of it device time ({1 - dev_ms / host_ms:.1%} "
           f"idle), peak {peak / 2**30:.3f} GiB allocated, on {card}")
-    print("train step device time by kernel (top 20, ms per step, launches):")
+    print(f"{name} step device time by kernel (top 20, ms per step, launches):")
     for e in events[:20]:
         print(f"  {e.self_device_time_total / n_prof / 1e3:8.3f} "
               f"{e.count // n_prof:5d}  {e.key[:110]}")
@@ -1544,6 +1583,232 @@ def entry_points_settings(card):
     return launches, (k1, k3, k4)
 
 
+# ------------------------------------------------------------ phases 9, 9b
+SWIN_TRAIN_STEPS = 3           # counted Swin-T train steps (phase 9), after one warm-up
+SWIN_ENTRY_ITERS = 2           # iterations of the Swin-T entry-point run
+# phase 9b: the other components over the R-50 recipe
+ALT_COMBINATIONS = [
+    ("R-50 + fpn_legacy_swap", dict(fpn_legacy_swap=True)),
+    ("R-50 + BasePixelDecoder", dict(pixel_decoder_name="BasePixelDecoder")),
+    ("R-50 + TransformerEncoderPixelDecoder + StandardTransformerDecoder",
+     dict(pixel_decoder_name="TransformerEncoderPixelDecoder",
+          transformer_decoder_name="StandardTransformerDecoder")),
+]
+
+
+def swin_recipe():
+    """The CVPPP recipe with ``MODEL.BACKBONE.NAME D2SwinTransformer`` at the
+    Swin-T defaults (embed 96, depths 2/2/6/2, heads 3/6/12/24, window 7,
+    drop path 0.3)."""
+    from pctrans_torch.config import CVPPP_RECIPE
+
+    return dataclasses.replace(CVPPP_RECIPE, backbone_name="D2SwinTransformer")
+
+
+def swin_phase(dev, card):
+    """Phase 9: the Swin-T PCTrans at the CVPPP recipe's full width: the f32
+    forward kernels vs twins, the bf16 evaluator (K1 timed on its own
+    inputs), 1 + 3 bf16 train steps with drop path on (K2 gated on one
+    step's own inputs).  Returns (eval launches, K1 record, train launches,
+    K2 record)."""
+    config = swin_recipe()
+    slice_f32(dev, config, "Swin-T f32 slice")
+    eval_launches, k1_model, _ = slice_bf16(dev, card, config, "bf16 Swin-T CVPPP",
+                                            with_k5=False)
+    train_launches, k2_model = train_bf16(dev, card, config, SWIN_TRAIN_STEPS,
+                                          "bf16 Swin-T train (drop path 0.3)")
+    torch.cuda.empty_cache()
+    return eval_launches, k1_model, train_launches, k2_model
+
+
+def swap_kernels_on_model_inputs(model, x, name) -> dict:
+    """K3 on the ten renders and K4 on the upsample-binarize that one bf16
+    eval step of the legacy-swap model gives them (stride-8 masks, 67x63
+    at 530x500): each against its twin, then ms per launch beside the
+    twin's."""
+    import pctrans_torch.engine.eval_step as eval_step_module
+    import pctrans_torch.models.transformer_decoder as decoder_module
+    from pctrans_torch.engine.eval_step import make_eval_step
+    from pctrans_torch.ops.render import dynamic_mask_render
+    from pctrans_torch.ops.resize import resize_bilinear
+    from pctrans_torch.ops.resize_binarize import resize_bilinear_binarize
+
+    k3_calls, k4_calls = [], []
+
+    def keep_k3(*a, impl=None):
+        k3_calls.append(a)
+        return dynamic_mask_render(*a, impl=impl)
+
+    def keep_k4(*a, impl=None):
+        k4_calls.append(a)
+        return resize_bilinear_binarize(*a, impl=impl)
+
+    decoder_module.dynamic_mask_render = keep_k3
+    eval_step_module.resize_bilinear_binarize = keep_k4
+    try:
+        make_eval_step(model, 50, 0.69)(x)
+    finally:
+        decoder_module.dynamic_mask_render = dynamic_mask_render
+        eval_step_module.resize_bilinear_binarize = resize_bilinear_binarize
+    grid = tuple(k3_calls[0][8])
+    with torch.inference_mode():
+        k3_errs = [rel_fro(dynamic_mask_render(*c), dynamic_mask_render(*c, impl="twin"))
+                   for c in k3_calls]
+        masks, hw, logit_t = k4_calls[0]
+        out = resize_bilinear_binarize(masks, hw, logit_t)
+        flips = out != resize_bilinear_binarize(masks, hw, logit_t, impl="twin")
+        n_flips = int(flips.sum())
+        worst = (float((resize_bilinear(masks, hw)[flips] - logit_t).abs().max())
+                 if n_flips else 0.0)
+        print(f"{name}: K3 on the eval step's {len(k3_calls)} renders at {grid}, rel-Fro to "
+              "the twin " + " ".join(f"{e:.2e}" for e in k3_errs) + " (<= 1e-5); K4 "
+              f"{tuple(masks.shape)} -> {hw}: {n_flips} of {out.numel()} bits flipped "
+              f"(<= 1e-4 of them), largest |logit - t| at a flip {worst:.3e} (<= 1e-4)")
+        if len(k3_calls) != model.config.dec_layers + 1 or grid != stage_sizes(IMAGE_HW)[1] or \
+                not max(k3_errs) <= 1e-5 or n_flips > 1e-4 * out.numel() or worst > 1e-4:
+            raise AssertionError(f"{name}: K3 or K4 disagrees with its twin at {grid}")
+        n = len(k3_calls)
+        run_k3 = lambda: [dynamic_mask_render(*c) for c in k3_calls]
+        run_k4 = lambda: resize_bilinear_binarize(masks, hw, logit_t)
+        rec = {"k3_ms": time_ms(run_k3) / n,
+               "k3_plain_ms": time_ms(
+                   lambda: [dynamic_mask_render(*c, impl="twin") for c in k3_calls]) / n,
+               "k4_ms": time_ms(run_k4),
+               "k4_plain_ms": time_ms(
+                   lambda: resize_bilinear_binarize(masks, hw, logit_t, impl="twin"))}
+        # both kernels' device time from one trace of both calls
+        reps = 10
+
+        def why_again(events):
+            kept = [sum(e.count for e in events if k in e.key)
+                    for k in ("render_kernel", "resize_binarize_kernel")]
+            if kept[0] >= 0.75 * n * reps and kept[1] >= 0.75 * reps:
+                return None
+            return f"it holds {kept} of K3's and K4's {[n * reps, reps]} kernel events"
+
+        events = trace_kernels(lambda: (run_k3(), run_k4()), reps, why_again)
+        for key, kernel in (("k3", "render"), ("k4", "resize_binarize")):
+            # each of the wrapper's kernels runs once per call: its mean
+            # over the events kept, summed over the wrapper's kernels
+            rec[f"{key}_device_ms"] = sum(e.self_device_time_total / e.count
+                                          for e in events if kernel in e.key) / 1e3
+    print(f"{name}, per launch on the model's inputs: K3 {rec['k3_ms']:.4f} ms/call "
+          f"({rec['k3_device_ms']:.4f} ms device), twin {rec['k3_plain_ms']:.4f}; K4 "
+          f"{rec['k4_ms']:.4f} ms/call ({rec['k4_device_ms']:.4f} ms device), twin "
+          f"{rec['k4_plain_ms']:.4f}")
+    return rec
+
+
+def alt_combinations(dev, card):
+    """Phase 9b: each of ``ALT_COMBINATIONS`` at the CVPPP recipe's width:
+    its f32 forward kernels vs twins, then one bf16 eval batch of four
+    530x500 scenes through the evaluator (launch counts per forward, labels
+    against the numpy oracle, the forward's times); under the legacy swap
+    K3 and K4 gated and timed on the stride-8 grid's own inputs.  Returns
+    ({name: eval launches}, the legacy swap's K3/K4 record)."""
+    from pctrans_torch.config import CVPPP_RECIPE
+    from pctrans_torch.engine.evaluator import Evaluator
+    from pctrans_torch.inference.postprocess import instance_inference_cvppp
+
+    launches, swap = {}, None
+    for name, over in ALT_COMBINATIONS:
+        config = dataclasses.replace(CVPPP_RECIPE, **over)
+        # K1 per forward with the MSDeformAttn pixel decoder, K3 with the
+        # PCTrans predictor, K4 once per eval step
+        layers = (config.enc_layers
+                  if config.pixel_decoder_name == "MSDeformAttnPixelDecoder" else 0,
+                  config.dec_layers + 1
+                  if config.transformer_decoder_name != "StandardTransformerDecoder" else 0, 1)
+        slice_f32(dev, config, f"{name}, f32 slice")
+        model = build_model(config, dev)
+        ev = Evaluator(model, top_k=50)
+        batches = list(scene_batches(1, SEED + 1))
+        launches[name], fwd, wall, _ = eval_run(
+            f"{name}, bf16 eval, batch {BATCH}, {IMAGE_HW}", ev, batches, ev.eval_cvppp,
+            layers)
+        check_labels(name, ev, batches, instance_inference_cvppp)
+        x = torch.from_numpy(batches[0]["image"]).to(dev)
+        with torch.inference_mode():
+            out = model(x)
+        grid = stage_sizes(IMAGE_HW)[1 if config.fpn_legacy_swap else 0]
+        if tuple(out["pred_masks"].shape) != (BATCH, config.num_queries, *grid) or \
+                not torch.isfinite(out["pred_masks"].float()).all():
+            raise AssertionError(f"{name}: pred_masks {tuple(out['pred_masks'].shape)}")
+        fwd_ms, fwd_dev = forward_times(model, x)
+        print(f"{name}: bf16 forward {fwd_ms:.3f} ms/batch of {BATCH} (CUDA events), "
+              f"{fwd_dev:.3f} ms of it device time ({1 - fwd_dev / fwd_ms:.1%} idle), "
+              f"masks {tuple(out['pred_masks'].shape)}; {fwd} forwards in {wall:.3f} s "
+              f"wall, on {card}")
+        if config.fpn_legacy_swap:
+            swap = swap_kernels_on_model_inputs(model, x, name)
+        del model, ev, out
+        torch.cuda.empty_cache()
+    return launches, swap
+
+
+def entry_points_swin(card):
+    """``scripts/main_torch.py --opts MODEL.BACKBONE.NAME D2SwinTransformer
+    DATASET.DATA_TYPE synthetic ...`` with the CVPPP YAMLs: 2 bf16
+    iterations at 448x448 batch 2 and a checkpoint at 2, then
+    ``scripts/eval_torch.py`` over it.  Returns the run's launches (K1, K2,
+    K3, K4) and the sweep's (K1, K3, K4)."""
+    from pctrans_torch.ops.msdeform import ms_deform_attn, ms_deform_attn_backward
+    from pctrans_torch.ops.render import dynamic_mask_render
+    from pctrans_torch.ops.resize_binarize import resize_bilinear_binarize
+
+    sys.path.insert(0, str(REPO / "scripts"))
+    import eval_torch
+    import main_torch
+
+    counters = (ms_deform_attn, ms_deform_attn_backward, dynamic_mask_render,
+                resize_bilinear_binarize)
+    it = SWIN_ENTRY_ITERS
+    (REPO / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=REPO / "build") as tmp:
+        cfg_args = ["--config-base", str(REPO / "configs/CVPPP/CVPPP-PCTrans-Base.yaml"),
+                    "--config-file", str(REPO / "configs/CVPPP/CVPPP-PCTrans.yaml")]
+        opts = ["MODEL.BACKBONE.NAME", "D2SwinTransformer", "DATASET.DATA_TYPE", "synthetic",
+                "SOLVER.ITERATION_TOTAL", str(it), "SOLVER.ITERATION_SAVE", str(it),
+                "SOLVER.START_SAVE", "0", "SOLVER.ITERATION_VAL", "0",
+                "DATASET.OUTPUT_PATH", tmp, "INFERENCE.OUTPUT_PATH", f"{tmp}/test",
+                "MONITOR.TENSORBOARD", "False", "MONITOR.ITERATION_NUM", "[1, 200]"]
+        for fn in counters:
+            fn.launches = 0
+        t0 = time.perf_counter()
+        trainer = main_torch.main(cfg_args + ["--opts", *opts])
+        train_wall = time.perf_counter() - t0
+        run = [fn.launches for fn in counters]
+        c = trainer.model_config
+        print(f"main_torch.py --opts MODEL.BACKBONE.NAME D2SwinTransformer, {it} bf16 "
+              f"iterations of {trainer.cfg.SOLVER.SAMPLES_PER_BATCH}x"
+              f"{trainer.cfg.MODEL.INPUT_SIZE}: launches K1 {run[0]}, K2 {run[1]}, K3 "
+              f"{run[2]}, K4 {run[3]}; wall {train_wall:.3f} s, on {card}")
+        if type(trainer.model.backbone).__name__ != "SwinTransformer" or \
+                run != [c.enc_layers * it, c.enc_layers * it, 0, 0]:
+            raise AssertionError("the Swin-T entry-point run is not the configured one")
+        lines = [json.loads(l) for l in Path(tmp, "metrics.jsonl").read_text().splitlines()]
+        saved = sorted(f for f in os.listdir(tmp) if f.endswith(".pth.tar"))
+        if [r["iter"] for r in lines] != list(range(it)) or \
+                saved != [f"checkpoint_{it:06d}.pth.tar"] or \
+                not all(math.isfinite(v) for r in lines for v in r.values()):
+            raise AssertionError(f"metrics.jsonl {lines}, checkpoints {saved}")
+
+        for fn in counters:
+            fn.launches = 0
+        t0 = time.perf_counter()
+        records = eval_torch.main(cfg_args + ["--start", "0", "--opts", *opts])
+        sweep_wall = time.perf_counter() - t0
+        k1, k2, k3, k4 = [fn.launches for fn in counters]
+        print(f"eval_torch.py over the Swin-T checkpoint: {records}; launches K1 {k1}, K3 "
+              f"{k3}, K4 {k4} (one per forward), K2 {k2}; wall {sweep_wall:.3f} s, on {card}")
+        if [r["iter"] for r in records] != [it] or \
+                not all(math.isfinite(v) for v in records[0].values()):
+            raise AssertionError("eval_torch.py did not score the Swin-T checkpoint")
+        if k4 < 4 or [k1, k3, k2] != [c.enc_layers * k4, (c.dec_layers + 1) * k4, 0]:
+            raise AssertionError("the Swin-T sweep's launch counts do not match its forwards")
+    return run, (k1, k3, k4)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -1589,13 +1854,23 @@ def main() -> int:
     k5 = entry_points(card)
     bbbc_entry = entry_points_bbbc(card)
     settings_train, settings_eval = entry_points_settings(card)
+    swin_eval, k1_swin, swin_train, k2_swin = swin_phase(dev, card)
+    k1_gate.update({f"swin_{k}": v for k, v in k1_swin.items()})
+    k2_gate.update({f"swin_{k}": v for k, v in k2_swin.items()})
+    swin_entry, swin_sweep = entry_points_swin(card)
+    alt_eval, swap = alt_combinations(dev, card)
+    gates[2].update({f"swap_{k[3:]}": v for k, v in swap.items() if k.startswith("k3_")})
+    gates[3].update({f"swap_{k[3:]}": v for k, v in swap.items() if k.startswith("k4_")})
     print(f"main paths: train K1 {k1}, K2 {k2}; eval K1 {k1_eval}, K3 {k3}, "
           f"K4 {k4}; entry points under PCTRANS_MSDA_IMPL=pallas K5 {k5}; BBBC eval "
           f"K1, K3, K4 {bbbc_eval}; BBBC entry points K1, K2, K3, K4 {bbbc_entry}; "
           f"sampled point modes K1, K2 {sampled}; entry points under the other settings "
           f"K1, K2, K3, K4 {settings_train}, their SWA evaluation K1, K3, K4 "
-          f"{settings_eval} (the kernels line reports K1/K2 from train, K3/K4 from the "
-          "CVPPP eval, K5 from the entry-point run)")
+          f"{settings_eval}; Swin-T eval K1, K3, K4 {swin_eval}, Swin-T train K1, K2, K3 "
+          f"{swin_train}, Swin-T entry points K1, K2, K3, K4 {swin_entry}, their sweep K1, "
+          f"K3, K4 {swin_sweep}; the other combinations' eval K1, K3, K4 {alt_eval} (the "
+          "kernels line reports K1/K2 from train, K3/K4 from the CVPPP eval, K5 from the "
+          "entry-point run)")
     launches = [k1, k2, k3, k4, k5]
 
     meta = [("K1 ms_deform_attn forward", "pctrans_torch/csrc/msdeform_fwd.cu",

@@ -1,9 +1,8 @@
 """Model configuration (mirror of ``pctrans_tpu/models/pctrans.py:23-137``).
 
 ``ModelConfig`` carries the fields this port reads.  The JAX config's
-Swin fields and its ``remat``/``remat_policy`` train-memory knobs are not
-carried: the Swin backbone is not ported yet, and remat is a training-only
-choice of the JAX graph.
+``remat``/``remat_policy`` train-memory knobs are not carried: remat is a
+training-only choice of the JAX graph.
 
 ``CVPPP_RECIPE`` and ``BBBC_RECIPE`` are the configurations that
 ``configs/{CVPPP,BBBC}/*-PCTrans{-Base,}.yaml`` build, as plain constants.
@@ -40,6 +39,12 @@ class ModelConfig:
     fpn_legacy_swap: bool = False
     sem_seg_head_name: str = "MaskFormerHead"
     transformer_decoder_name: str = "MultiScaleMaskedTransformerDecoder"
+    # Swin-T (MODEL.BACKBONE.NAME D2SwinTransformer; optional MODEL.SWIN node)
+    swin_embed_dim: int = 96
+    swin_depths: Tuple[int, ...] = (2, 2, 6, 2)
+    swin_num_heads: Tuple[int, ...] = (3, 6, 12, 24)
+    swin_window_size: int = 7
+    swin_drop_path: float = 0.3
     pixel_mean: Tuple[float, float, float] = (0.0, 0.0, 0.0)
     pixel_std: Tuple[float, float, float] = (1.0, 1.0, 1.0)
     upsample2x: bool = False
@@ -55,29 +60,35 @@ CVPPP_RECIPE = ModelConfig(pixel_std=(255.0, 255.0, 255.0), dtype="bfloat16")
 BBBC_RECIPE = dataclasses.replace(CVPPP_RECIPE, num_queries=300)
 
 
+BACKBONES = ("build_resnet_backbone", "D2SwinTransformer")
+PIXEL_DECODERS = ("MSDeformAttnPixelDecoder", "BasePixelDecoder",
+                  "TransformerEncoderPixelDecoder")
+TRANSFORMER_DECODERS = ("MultiScaleMaskedTransformerDecoder",
+                        "StandardTransformerDecoder")
+
+
 def validate(c: ModelConfig) -> None:
-    """Raise for components this port does not have yet."""
-    if c.backbone_name != "build_resnet_backbone":
-        raise NotImplementedError(
-            f"backbone {c.backbone_name!r}: ported in ROADMAP item 24 "
-            "(alternative components)")
-    if c.pixel_decoder_name != "MSDeformAttnPixelDecoder":
-        raise NotImplementedError(
-            f"pixel decoder {c.pixel_decoder_name!r}: ported in ROADMAP "
-            "item 24 (alternative components)")
-    if c.transformer_decoder_name != "MultiScaleMaskedTransformerDecoder":
-        raise NotImplementedError(
-            f"transformer decoder {c.transformer_decoder_name!r}: ported in "
-            "ROADMAP item 24 (alternative components)")
+    """Raise ``ValueError`` for a component or combination the model cannot
+    build (``pctrans_tpu/models/pctrans.py:171-263`` dispatches on the same
+    names)."""
+    for value, known, key in (
+            (c.backbone_name, BACKBONES, "MODEL.BACKBONE.NAME"),
+            (c.pixel_decoder_name, PIXEL_DECODERS, "MODEL.SEM_SEG_HEAD.PIXEL_DECODER_NAME"),
+            (c.transformer_decoder_name, TRANSFORMER_DECODERS,
+             "MODEL.MASK_FORMER.TRANSFORMER_DECODER_NAME")):
+        if value not in known:
+            raise ValueError(f"{key} {value!r}: one of {known}")
     if c.sem_seg_head_name != "MaskFormerHead":
         raise ValueError(
             f"MODEL.SEM_SEG_HEAD.NAME={c.sem_seg_head_name!r}: only "
-            "MaskFormerHead composes into PCTransModel")
-    if c.fpn_legacy_swap:
-        raise NotImplementedError(
-            "fpn_legacy_swap=True (the published stride-8 FPN quirk): "
-            "ported in ROADMAP item 24a")
-    if c.backbone_depth not in (14, 50, 101):
+            "MaskFormerHead composes into PCTransModel; the per-pixel "
+            "baselines (models/per_pixel.py) are standalone heads")
+    if (c.transformer_decoder_name == "StandardTransformerDecoder"
+            and c.pixel_decoder_name == "BasePixelDecoder"):
+        # JAX fails here on the missing encoder features (enc_top is None)
+        raise ValueError("StandardTransformerDecoder attends over the pixel "
+                         "decoder's encoder features; BasePixelDecoder has none")
+    if c.backbone_name == "build_resnet_backbone" and c.backbone_depth not in (14, 50, 101):
         raise ValueError(f"unsupported ResNet depth {c.backbone_depth}")
 
 
@@ -86,6 +97,16 @@ def build_model_config(cfg) -> ModelConfig:
     ``pctrans_tpu.models.pctrans.build_model_config``)."""
     mf = cfg.MODEL.MASK_FORMER
     sh = cfg.MODEL.SEM_SEG_HEAD
+    sw = cfg.MODEL.get("SWIN", None)
+    swin_kwargs = {}
+    if sw is not None:
+        swin_kwargs = dict(
+            swin_embed_dim=sw.EMBED_DIM,
+            swin_depths=tuple(sw.DEPTHS),
+            swin_num_heads=tuple(sw.NUM_HEADS),
+            swin_window_size=sw.WINDOW_SIZE,
+            swin_drop_path=sw.DROP_PATH_RATE,
+        )
     return ModelConfig(
         hidden_dim=mf.HIDDEN_DIM,
         conv_dim=sh.CONVS_DIM,
@@ -112,5 +133,6 @@ def build_model_config(cfg) -> ModelConfig:
         dtype="bfloat16" if cfg.MODEL.MIXED_PRECESION else "float32",
         upsample2x=cfg.MODEL.MASK_FORMER.TPU_RECIPE.UPSAMPLE2X,
         fpn_legacy_swap=bool(sh.get("FPN_LEGACY_SWAP", False)),
+        **swin_kwargs,
     )
 

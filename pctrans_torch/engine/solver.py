@@ -95,15 +95,20 @@ def build_solver_config(cfg) -> SolverConfig:
 
 
 def parameter_groups(model: nn.Module) -> Dict[str, List[str]]:
-    """Parameter names by the JAX package's ``_is_norm_or_bias_path``
-    labels: ``norm`` (every parameter of a norm layer), ``bias`` (the other
-    biases) and ``kernel`` (every other weight and embedding)."""
+    """Parameter names by the JAX package's ``_is_norm_or_bias_path`` rule
+    (``pctrans_tpu/engine/solver.py:162-171``), read on the torch name,
+    which holds "norm" or "bn" where the flax path does: ``norm`` (a name
+    with either, or a norm layer's scale), ``bias`` (the other biases, the
+    MSDeformAttn decoder's ``input_gn`` biases among them) and ``kernel``
+    (every other weight, embedding and table)."""
     groups: Dict[str, List[str]] = {"kernel": [], "bias": [], "norm": []}
     for mod_name, mod in model.named_modules():
         for p_name, _ in mod.named_parameters(recurse=False):
-            label = ("norm" if isinstance(mod, NORM_TYPES)
+            name = f"{mod_name}.{p_name}" if mod_name else p_name
+            label = ("norm" if "norm" in name.lower() or "bn" in name.lower()
+                     or (isinstance(mod, NORM_TYPES) and p_name == "weight")
                      else "bias" if p_name == "bias" else "kernel")
-            groups[label].append(f"{mod_name}.{p_name}" if mod_name else p_name)
+            groups[label].append(name)
     return groups
 
 

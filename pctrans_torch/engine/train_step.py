@@ -19,7 +19,10 @@ generator)(batch)`` runs one optimizer step on
 Returns the total (``"loss"``) and every raw loss as detached 0-d tensors.
 The criterion's uniform draws (:meth:`SetCriterion.draws`) come from
 ``generator`` unless the caller passes ``reid_uniform`` [B, max_instances,
-Q] and, in a point mode, ``point_draws``.
+Q] and, in a point mode, ``point_draws``; a Swin backbone's drop path draws
+from ``generator`` after them.  A model with the DETR predictor is refused:
+it gives masks only, and the criterion needs the PCTrans predictor's
+reference points (JAX fails there at ``losses/criterion.py:391``).
 """
 
 from __future__ import annotations
@@ -54,6 +57,11 @@ def make_train_step(model: PCTransModel, criterion: SetCriterion,
                     generator: Optional[torch.Generator] = None,
                     solver: Optional[SolverConfig] = None,
                     input_range: Tuple[float, float] = (0.0, 1.0)) -> Callable:
+    if model.config.transformer_decoder_name != "MultiScaleMaskedTransformerDecoder":
+        raise ValueError(
+            f"training with {model.config.transformer_decoder_name}: the PCTrans "
+            "criterion needs the reference points and query embeddings that only "
+            "MultiScaleMaskedTransformerDecoder gives")
     device = next(model.parameters()).device
     num_queries = model.config.num_queries
     dense = criterion.cfg.point_select == "dense"
@@ -71,7 +79,7 @@ def make_train_step(model: PCTransModel, criterion: SetCriterion,
             reid_uniform = reid if reid_uniform is None else reid_uniform
             point_draws = drawn if point_draws is None else point_draws
         optimizer.zero_grad(set_to_none=True)
-        outputs = model(images)
+        outputs = model(images, generator=generator)
         total, losses, _ = criterion(outputs, targets, reid_uniform.to(device),
                                      {k: v.to(device) for k, v in point_draws.items()}
                                      if point_draws else None)

@@ -87,6 +87,9 @@ class Trainer:
         self.model = PCTransModel(self.model_config,
                                   generator=torch.Generator().manual_seed(0))
         if cfg.MODEL.WEIGHTS and os.path.exists(cfg.MODEL.WEIGHTS):
+            if self.model_config.backbone_name != "build_resnet_backbone":
+                raise ValueError(f"MODEL.WEIGHTS with {self.model_config.backbone_name}: "
+                                 "the weights reader is the detectron2 R-50 pickle's")
             self.model.backbone.load_state_dict(convert_d2_r50_pickle(
                 cfg.MODEL.WEIGHTS, self.model_config.backbone_depth))
         self.model.to(self.device)

@@ -3,7 +3,10 @@
 Projects res3-5 to ``conv_dim`` channels, runs the deformable-attention
 encoder over the concatenated flattened levels (low resolution first: res5,
 res4, res3), splits the result back into maps and fuses res2 through one
-FPN stage into the stride-4 mask features.  Maps are NCHW.
+FPN stage into the stride-4 mask features.  ``fpn_legacy_swap`` gives the
+published model's operands instead (``pixel_decoder.py:172-182``): the res2
+lateral resized down onto res3's grid and added there, so the mask features
+sit on the stride-8 grid.  Maps are NCHW.
 """
 
 from __future__ import annotations
@@ -101,15 +104,18 @@ def encoder_reference_points(spatial_shapes: Sequence[Tuple[int, int]],
 
 
 class MSDeformAttnPixelDecoder(nn.Module):
-    """Backbone features -> (mask_features [B, conv_dim, H/4, W/4],
-    multi-scale maps [res5', res4', res3'])."""
+    """Backbone features -> (mask_features [B, conv_dim, H/4, W/4] (H/8 x
+    W/8 under ``fpn_legacy_swap``), the encoder's res5 map, multi-scale maps
+    [res5', res4', res3'])."""
 
     def __init__(self, in_channels: Dict[str, int], conv_dim: int = 128,
                  norm: str = "SyncBN", transformer_layers: int = 6,
                  n_heads: int = 8, n_points: int = 4, d_ffn: int = 1024,
                  transformer_in_features: Sequence[str] = ("res3", "res4", "res5"),
-                 fpn_in_features: Sequence[str] = ("res2",)):
+                 fpn_in_features: Sequence[str] = ("res2",),
+                 fpn_legacy_swap: bool = False):
         super().__init__()
+        self.fpn_legacy_swap = fpn_legacy_swap
         self.tif = list(transformer_in_features)[::-1]     # res5, res4, res3
         self.fpn = list(fpn_in_features)[::-1]
         self.conv_dim = conv_dim
@@ -153,10 +159,14 @@ class MSDeformAttnPixelDecoder(nn.Module):
             out.append(y[:, start:start + H * W].transpose(1, 2)
                        .reshape(y.shape[0], self.conv_dim, H, W))
             start += H * W
-        # FPN: stride-4 mask features = lateral(res2) + upsampled res3'
+        # FPN: stride-4 mask features = lateral(res2) + upsampled res3', or
+        # under the legacy swap res3' + lateral(res2) downsampled (stride 8)
         for i, name in enumerate(self.fpn):
             x = features[name]
             lateral = self.adapter[i](x)
-            up = resize_bilinear(out[-1], x.shape[-2:])
-            out.append(self.layer[i](lateral + up))
-        return out[-1], out[:3]
+            if self.fpn_legacy_swap:
+                fused = out[-1] + resize_bilinear(lateral, out[-1].shape[-2:])
+            else:
+                fused = lateral + resize_bilinear(out[-1], x.shape[-2:])
+            out.append(self.layer[i](fused))
+        return out[-1], out[0], out[:3]

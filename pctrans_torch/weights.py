@@ -5,19 +5,28 @@ nested dicts of numpy arrays, ``{"params": ..., "frozen": ...,
 "batch_stats": ...}``, and loads them into a :class:`PCTransModel`:
 
 * Dense kernels ``[in, out]`` become ``nn.Linear`` weights ``[out, in]``;
+* the attention projections of flax ``MultiHeadDotProductAttention`` become
+  ``nn.Linear`` weights: ``query``/``key``/``value`` kernels
+  ``[in, heads, head_dim]`` and their ``[heads, head_dim]`` biases, and
+  ``out`` kernels ``[heads, head_dim, out]``, flattened over the heads;
 * conv kernels HWIO become OIHW;
+* a Swin relative-position table that JAX sized to a clamped window
+  (``(2w - 1)**2`` rows for a map of w < window tokens) fills the central
+  offsets of the port's full-window table; the other offsets are 0;
 * LayerNorm / GroupNorm / BatchNorm ``scale`` becomes ``weight``;
 * the ``frozen`` collection fills the FrozenBatchNorm buffers;
 * ``batch_stats`` fill the BatchNorm running statistics.
 
 Module names follow the flax tree with PyTorch containers
-(``cross3`` -> ``cross_layers.3``, ``Dense_1`` -> ``layers.1``, ...).  Any
+(``cross3`` -> ``cross_layers.3``, ``Dense_1`` -> ``layers.1``,
+``layer2_block1`` -> ``blocks.2.1`` in a Swin backbone, ...).  Any
 flax leaf without a torch entry, any torch entry left without a value, and
 any shape mismatch raises.
 """
 
 from __future__ import annotations
 
+import math
 import re
 from typing import Dict, Iterator, Mapping, Tuple
 
@@ -25,9 +34,11 @@ import numpy as np
 import torch
 from torch import nn
 
-_INDEXED = re.compile(r"^(input_proj|input_gn|encoder_layer|adapter|layer|seg_head)(\d+)$")
+_INDEXED = re.compile(r"^(input_proj|input_gn|encoder_layer|decoder_layer|adapter|layer|"
+                      r"seg_head|downsample|out_norm)(\d+)$")
 _DECODER_LAYER = re.compile(r"^(cross|self|ffn)(\d+)$")
 _BLOCK = re.compile(r"^(res\d)_block(\d+)$")
+_SWIN_BLOCK = re.compile(r"^layer(\d+)_block(\d+)$")
 _NORM = re.compile(r"^(FrozenBatchNorm|BatchNorm|GroupNorm)_(\d+)$")
 _LEAF = {
     "params": {"kernel": "weight", "scale": "weight", "bias": "bias"},
@@ -46,7 +57,7 @@ def _flatten(tree: Mapping, prefix: Tuple[str, ...] = ()) -> Iterator:
 
 def _segment(seg: str) -> str:
     for pat, fmt in ((_INDEXED, r"\1.\2"), (_DECODER_LAYER, r"\1_layers.\2"),
-                     (_BLOCK, r"\1.\2")):
+                     (_BLOCK, r"\1.\2"), (_SWIN_BLOCK, r"blocks.\1.\2")):
         if pat.match(seg):
             return pat.sub(fmt, seg)
     if seg.startswith("Dense_"):
@@ -85,20 +96,40 @@ def torch_key(col: str, path: Tuple[str, ...], params: Mapping) -> str:
         if leaf not in _LEAF[col]:
             raise KeyError(f"unknown {col} leaf {'/'.join(path)}")
         leaf_name = _LEAF[col][leaf]
-    if mods and mods[0] == "backbone" and len(mods) > 1:
+    if mods[:1] == ["backbone"] and len(mods) > 1 and \
+            "stem_conv1" in params.get("backbone", {}):       # a ResNet's tree
         module = _backbone_module(tuple(mods), params)
     else:
         module = ".".join(_segment(s) for s in mods)
     return module if leaf_name is None else f"{module}.{leaf_name}"
 
 
-def _to_torch(arr, leaf: str) -> torch.Tensor:
+def _to_torch(arr, leaf: str, module: str = "") -> torch.Tensor:
+    """The torch layout of the flax leaf ``leaf`` of the module ``module``."""
     t = torch.from_numpy(np.array(arr, dtype=np.float32))
+    if leaf == "kernel" and t.ndim == 3:               # attention projections
+        t = t.reshape(-1, t.shape[-1]) if module == "out" else t.reshape(t.shape[0], -1)
+        return t.t().contiguous()
+    if leaf == "bias" and t.ndim == 2:                 # [heads, head_dim]
+        return t.reshape(-1)
     if leaf == "kernel" and t.ndim == 4:
         return t.permute(3, 2, 0, 1).contiguous()     # HWIO -> OIHW
     if leaf == "kernel" and t.ndim == 2:
         return t.t().contiguous()                      # [in, out] -> [out, in]
     return t
+
+
+def _full_window_table(t: torch.Tensor, shape) -> torch.Tensor:
+    """A clamped window's table [(2w - 1)**2, heads] placed at the centre of
+    the full window's [(2W - 1)**2, heads], the rest 0."""
+    w, full = (round(math.sqrt(n)) for n in (t.shape[0], shape[0]))
+    if t.shape == shape or t.ndim != 2 or t.shape[1] != shape[1] or \
+            w * w != t.shape[0] or w % 2 == 0 or w > full:
+        return t                           # equal, or the shape check raises
+    out = torch.zeros(full, full, shape[1])
+    lo = (full - w) // 2
+    out[lo:lo + w, lo:lo + w] = t.reshape(w, w, -1)
+    return out.reshape(shape)
 
 
 def load_flax_variables(model: nn.Module,
@@ -115,7 +146,9 @@ def load_flax_variables(model: nn.Module,
                 raise KeyError(f"flax {name} -> {key}: no such torch entry")
             if key in new:
                 raise KeyError(f"flax {name} -> {key}: loaded twice")
-            t = _to_torch(arr, path[-1])
+            t = _to_torch(arr, path[-1], path[-2] if len(path) > 1 else "")
+            if path[-1] == "relative_position_bias_table":
+                t = _full_window_table(t, state[key].shape)
             if t.shape != state[key].shape:
                 raise ValueError(f"flax {name} -> {key}: shape {tuple(t.shape)} "
                                  f"!= {tuple(state[key].shape)}")

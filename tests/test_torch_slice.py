@@ -203,13 +203,12 @@ def test_cvppp_recipe_equals_yaml_config():
     ref = jax_build(cfg)
     for f in dataclasses.fields(ModelConfig):
         assert getattr(CVPPP_RECIPE, f.name) == getattr(ref, f.name), f.name
-    # fields the port does not carry: the Swin backbone's and the JAX
-    # graph's train-memory knobs
+    # fields the port does not carry: the JAX graph's train-memory knobs;
+    # the Swin fields are carried and equal JAX's (the loop above)
     skipped = {f.name for f in dataclasses.fields(JaxConfig)} - \
         {f.name for f in dataclasses.fields(ModelConfig)}
-    assert skipped == {"swin_embed_dim", "swin_depths", "swin_num_heads",
-                       "swin_window_size", "swin_drop_path", "remat",
-                       "remat_policy"}
+    assert skipped == {"remat", "remat_policy"}
+    assert CVPPP_RECIPE.swin_depths == ref.swin_depths == (2, 2, 6, 2)
     assert CVPPP_RECIPE.pixel_std == (255.0, 255.0, 255.0)
     assert CVPPP_RECIPE.dtype == "bfloat16"
 
