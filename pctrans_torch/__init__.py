@@ -15,13 +15,17 @@ layout so each module's counterpart is easy to find:
               each has a plain PyTorch twin and a hand-written CUDA kernel
               built at first use (ops/_build.py)
   losses/     dense SetCriterion: matcher, re-id, discriminative, focal
-  engine/     train step and solver, eval step and CVPPP evaluator,
-              checkpoints, the Trainer behind scripts/main_torch.py and
-              scripts/eval_torch.py
-  data/       padded targets, CVPPP and synthetic datasets, the prefetching
-              loader
-  inference/  CVPPP instance postprocess and metrics (numpy)
-  utils/      the training monitor (metrics.jsonl)
+  engine/     train step and solver, eval step and the evaluator with its
+              label pipeline, checkpoints, the Trainer behind
+              scripts/main_torch.py and scripts/eval_torch.py
+  parallel/   one process per card: the process group, SyncBN's and the
+              criterion's collectives, per-rank draws, gradient averaging
+  data/       padded targets, CVPPP, BBBC, cellpose, MoNuSeg and synthetic
+              datasets, the prefetching loader with per-rank shares, TTA
+  inference/  instance postprocess (device and numpy), the submission's
+              cleanup, CVPPP and BBBC metrics
+  utils/      the training monitor (metrics.jsonl, the profiler window)
+              and the validation panels
   csrc/       CUDA C++ sources of the kernels (sm_90a)
 
 Public functions keep the JAX package's layouts: NHWC images in, the same

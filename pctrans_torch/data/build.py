@@ -9,8 +9,10 @@ so batches are the JAX loader's, bit for bit, whatever the thread
 scheduling.  Eval loaders pad a ragged last batch by repeating its last item
 and carry ``_num_valid``; consumers score only the first ``_num_valid`` rows.
 
-One process reads the whole batch: the multi-process shard of the JAX
-loader comes with multi-card training (ROADMAP slice 4).
+Multi-card training (one process per card): each process takes a
+disjoint stride of every epoch's permutation (``process_index`` of
+``process_count``) and a batch of SOLVER.SAMPLES_PER_BATCH, its rows of the
+global batch, as the JAX loader's processes do.
 """
 
 from __future__ import annotations
@@ -26,11 +28,10 @@ import numpy as np
 
 from .bbbc import BBBC
 from .cvppp import CVPPP
+from .instance_folder import CellposeDataset, MoNuSegDataset
 from .synthetic import SyntheticDataset, nuclei_scene_rule
 
 _NOT_PORTED = {
-    "cellpose": "ROADMAP item 21a (instance-folder datasets)",
-    "monuseg": "ROADMAP item 21a (instance-folder datasets)",
     "volume": "ROADMAP item 26 (the legacy EM zoo)",
     "tile": "ROADMAP item 26 (the legacy EM zoo)",
 }
@@ -53,6 +54,9 @@ def get_dataset(cfg, mode: str):
         return SyntheticDataset(size=size, length=64 if mode == "train" else 8,
                                 n_instances=n_inst, radius_px=radius,
                                 seed={"train": 0, "val": 1, "test": 2}[mode])
+    if dt in ("cellpose", "monuseg"):
+        cls = CellposeDataset if dt == "cellpose" else MoNuSegDataset
+        return cls(cfg.DATASET.INPUT_PATH, mode, crop_size=cfg.MODEL.INPUT_SIZE[-1])
     if dt in _NOT_PORTED:
         raise NotImplementedError(f"DATASET.DATA_TYPE {dt!r}: not ported yet, "
                                   f"{_NOT_PORTED[dt]}")
@@ -75,17 +79,22 @@ class PrefetchLoader:
     One producer thread assembles batches; only item loads run on the pool,
     so the pool never waits on its own tasks.  Finished batches flow through
     a bounded queue.  A dataset whose ``__getitem__`` takes ``rng`` gets a
-    stream per (seed, epoch, index).
+    stream per (seed, epoch, index).  With ``process_count`` > 1 each
+    process takes the disjoint stride ``process_index::process_count`` of
+    every epoch's permutation.
     """
 
     _SENTINEL = object()
 
     def __init__(self, dataset, batch_size: int, shuffle: bool, seed: int = 0,
                  num_workers: int = 4, prefetch: int = 2, drop_last: bool = True,
-                 loop: bool = True, pad_last: bool = False, max_instances: int = 0):
+                 loop: bool = True, pad_last: bool = False, max_instances: int = 0,
+                 process_index: int = 0, process_count: int = 1):
         self.dataset = dataset
         self.batch_size = batch_size
         self.shuffle = shuffle
+        self.process_index = int(process_index)
+        self.process_count = max(int(process_count), 1)
         self.loop = loop
         self.drop_last = drop_last
         self.pad_last = pad_last
@@ -103,10 +112,13 @@ class PrefetchLoader:
         n = len(self.dataset)
         rng = np.random.RandomState((self.seed + 7919 * epoch) % (2**32))
         idx = rng.permutation(n) if self.shuffle else np.arange(n)
+        if self.process_count > 1:         # this process's disjoint share
+            idx = idx[self.process_index::self.process_count]
+        n = len(idx)
         bs = self.batch_size
         stop = n - bs + 1 if self.drop_last else n
         if stop <= 0 and (self.drop_last or n == 0):
-            raise ValueError(f"dataset yields no batches: {n} item(s) for "
+            raise ValueError(f"dataset yields no batches: {n} item(s) per process for "
                              f"batch_size {bs} (drop_last={self.drop_last})")
         for s in range(0, stop, bs):
             yield idx[s:s + bs]
@@ -197,10 +209,20 @@ class PrefetchLoader:
                 pass
 
 
-def build_dataloader(cfg, mode: str, seed: int = 0) -> PrefetchLoader:
+def build_dataloader(cfg, mode: str, seed: int = 0, process_index: int = 0,
+                     process_count: int = 1) -> PrefetchLoader:
+    """The loader of ``mode``; with ``process_count`` > 1, process
+    ``process_index``'s share: a batch of SAMPLES_PER_BATCH (its rows of the
+    global batch) over its disjoint stride of each epoch."""
     train = mode == "train"
+    global_bs = batch_size_for(cfg, mode, process_count)
+    if global_bs % process_count:
+        raise ValueError(f"global batch size {global_bs} ({mode}) is not divisible by "
+                         f"{process_count} processes; adjust SOLVER/INFERENCE."
+                         "SAMPLES_PER_BATCH")
     return PrefetchLoader(
-        get_dataset(cfg, mode), batch_size=batch_size_for(cfg, mode),
+        get_dataset(cfg, mode), batch_size=global_bs // process_count,
         shuffle=train, seed=seed, num_workers=max(2, cfg.SYSTEM.NUM_CPUS // 2),
         loop=train, drop_last=train, pad_last=not train,
-        max_instances=int(getattr(cfg.MODEL, "MAX_INSTANCES", 0) or 0))
+        max_instances=int(getattr(cfg.MODEL, "MAX_INSTANCES", 0) or 0),
+        process_index=process_index, process_count=process_count)

@@ -30,6 +30,17 @@ VAL_PLANTS = [
     "plant148", "plant159",
 ]
 
+# the 33 plants of the A1 test release, in order: ``test_cvppp`` names its
+# k-th prediction TEST_PLANTS[k] in ``submission.h5``
+TEST_PLANTS = [
+    "plant003", "plant004", "plant009", "plant014", "plant019", "plant023",
+    "plant025", "plant028", "plant034", "plant041", "plant056", "plant066",
+    "plant074", "plant075", "plant081", "plant087", "plant093", "plant095",
+    "plant097", "plant103", "plant111", "plant112", "plant117", "plant122",
+    "plant125", "plant131", "plant136", "plant140", "plant150", "plant155",
+    "plant157", "plant158", "plant160",
+]
+
 
 def random_resized_crop_params(
     rng: np.random.RandomState,
@@ -63,11 +74,13 @@ def random_resized_crop_params(
     return (height - h) // 2, (width - w) // 2, h, w
 
 
-def _resize(img: np.ndarray, size: int, nearest: bool) -> np.ndarray:
+def _resize(img: np.ndarray, size, nearest: bool) -> np.ndarray:
+    """size: int (square) or (h, w)."""
     import cv2
 
+    h, w = (size, size) if isinstance(size, int) else size
     interp = cv2.INTER_NEAREST if nearest else cv2.INTER_LINEAR
-    return cv2.resize(img, (size, size), interpolation=interp)
+    return cv2.resize(img, (w, h), interpolation=interp)
 
 
 def normalize_image(img_u8: np.ndarray) -> np.ndarray:
@@ -77,13 +90,12 @@ def normalize_image(img_u8: np.ndarray) -> np.ndarray:
 
 
 class CVPPP:
-    """mode 'train' | 'val'; files under ``<root>/{train,val}/``."""
+    """mode 'train' | 'val' | 'test'; files under ``<root>/{train,val,test}/``.
+    The test split has rgb and fg only (its labels are withheld)."""
 
     def __init__(self, root: str, mode: str, crop_size: int = 448, seed: int = 0):
-        if mode not in ("train", "val"):
-            raise NotImplementedError(
-                f"CVPPP mode {mode!r}: the test split and its submission "
-                "writer are ROADMAP item 19 (test_cvppp)")
+        if mode not in ("train", "val", "test"):
+            raise ValueError(f"CVPPP mode {mode!r}: one of train, val, test")
         self.mode = mode
         self.crop_size = crop_size
         self.dir = os.path.join(root, mode)
@@ -95,7 +107,7 @@ class CVPPP:
                 raise FileNotFoundError(
                     f"CVPPP val split: no plants from the 20-plant val list "
                     f"found in {self.dir}")
-        else:
+        elif mode == "train":
             plants = [p for p in plants if p not in VAL_PLANTS]
         self.plants = plants
         self._rng = np.random.RandomState(seed)
@@ -115,6 +127,9 @@ class CVPPP:
                     rng: Optional[np.random.RandomState] = None) -> Dict[str, np.ndarray]:
         plant = self.plants[idx]
         rgb = self._load(plant, "rgb")
+        if self.mode == "test":
+            fg = relabel_consecutive(self._load(plant, "fg"))
+            return {"image": normalize_image(rgb), "fg": fg.astype(np.int32)}
         label = self._load(plant, "label")
         if self.mode == "val":
             fg = self._load(plant, "fg")

@@ -10,18 +10,27 @@ fetches the packed statistics, checks TOP_K's lossiness on the peak logits
 paint run on the device; the label map is the one array of pixels that
 comes back.  Scores: SBD and |DiC| (``metrics_cvppp``) for CVPPP; AJI,
 pixel F1, detection F1 and PQ (``metrics_bbbc``) for BBBC.
+
+``eval_cvppp``, ``test_bbbc`` and ``cvppp_submission`` label through
+:meth:`Evaluator._label_pipeline`, the JAX eval loops' five stages, each one
+batch behind the one before (``pctrans_tpu/engine/trainer.py:423-483``): the
+forward of batch n+1 is queued while the host clusters batch n and the copies
+of statistics and label maps land.  The labels are those of the serial
+:meth:`Evaluator.predict_labels`, bit for bit.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Iterable, Optional, Tuple
+from typing import Dict, Iterable, Iterator, Optional, Tuple
 
 import numpy as np
 import torch
 
 from ..inference import metrics_bbbc as mb
 from ..inference import metrics_cvppp as mc
-from ..inference.device_postprocess import DevicePostprocessor, unpack_mask_stats
+from ..inference.device_postprocess import (DevicePostprocessor, copy_to_host_async,
+                                            pipeline_batches, unpack_mask_stats)
+from ..inference.postprocess import merge_func
 from ..models import PCTransModel
 from .eval_step import make_eval_step
 
@@ -40,23 +49,34 @@ class Evaluator:
         self._step = make_eval_step(model, top_k or None, self.threshold, with_stats=True)
         self._full_step = make_eval_step(model, None, self.threshold, with_stats=True)
         self.forwards = 0          # forwards run, full-Q re-runs included
+        # the label pipeline's host copies run on a stream of their own
+        self._copy_stream = (torch.cuda.Stream(self.device) if self.device.type == "cuda"
+                             else None)
+
+    def _images(self, images: np.ndarray) -> torch.Tensor:
+        return torch.from_numpy(np.ascontiguousarray(images, np.float32)).to(self.device)
+
+    def _lossy(self, masks: torch.Tensor, stats: np.ndarray) -> bool:
+        """TOP_K was provably lossy: its lowest kept peak clears the
+        threshold."""
+        if masks.shape[1] >= self.num_queries:
+            return False
+        peaks = unpack_mask_stats(stats)[2]
+        with np.errstate(over="ignore"):        # exp(88.8) is inf in f32
+            return bool((1.0 / (1.0 + np.exp(-peaks[:, -1])) > self.threshold).any())
 
     def masks_and_stats(self, images: np.ndarray) -> Tuple[torch.Tensor, np.ndarray]:
         """images [B, H, W, 3] -> (u8 masks [B, K, H, W] on the device, their
         packed statistics [B, K, K+2] on the host)."""
-        x = torch.from_numpy(np.ascontiguousarray(images, np.float32)).to(self.device)
+        x = self._images(images)
         masks, stats = self._step(x)
         self.forwards += 1
         stats = stats.cpu().numpy()
-        if masks.shape[1] < self.num_queries:
-            peaks = unpack_mask_stats(stats)[2]
-            with np.errstate(over="ignore"):        # exp(88.8) is inf in f32
-                lossy = (1.0 / (1.0 + np.exp(-peaks[:, -1])) > self.threshold).any()
-            if lossy:
-                # TOP_K was provably lossy: run again with all queries
-                masks, stats = self._full_step(x)
-                self.forwards += 1
-                stats = stats.cpu().numpy()
+        if self._lossy(masks, stats):
+            # run again with all queries
+            masks, stats = self._full_step(x)
+            self.forwards += 1
+            stats = stats.cpu().numpy()
         return masks, stats
 
     def label_masks(self, masks: torch.Tensor, stats: np.ndarray) -> np.ndarray:
@@ -73,14 +93,56 @@ class Evaluator:
         """images [B, H, W, 3] -> int16 instance label maps [B, H, W]."""
         return self.label_masks(*self.masks_and_stats(images))
 
+    # ------------------------------------------------ the label pipeline
+    def _dispatch(self, images: np.ndarray):
+        """Stage 0: queue the forward, binarize and statistics, and start the
+        statistics' copy to the host."""
+        x = self._images(images)
+        masks, stats = self._step(x)
+        self.forwards += 1
+        return x, masks, copy_to_host_async(stats, self._copy_stream)
+
+    def _cluster(self, handles):
+        """Stage 1: the TOP_K lossiness check on the landed statistics (a
+        lossy batch runs again at full Q, fetched at once), the greedy
+        clustering and the postprocess's device tail; CVPPP's merged
+        statistics start their copy."""
+        x, masks, stats = handles
+        stats = stats.wait().numpy()
+        if self._lossy(masks, stats):
+            masks, stats = self._full_step(x)
+            self.forwards += 1
+            stats = stats.cpu().numpy()
+        areas, inter, _ = unpack_mask_stats(stats)
+        pending = self.postprocessor.start(masks, areas, inter)
+        if isinstance(pending, torch.Tensor):
+            return pending
+        merged, m_stats, clusters = pending
+        return merged, copy_to_host_async(m_stats, self._copy_stream), clusters
+
+    def _label_pipeline(self, batches: Iterable[Dict[str, np.ndarray]]
+                        ) -> Iterator[Tuple[Dict[str, np.ndarray], np.ndarray]]:
+        """(batch, int16 label maps [B, H, W]) for each batch, in order,
+        through five stages one batch apart: dispatch; lossiness check,
+        clustering and the device tail; CVPPP's NMS and the paint, which
+        starts the label map's copy; a pass-through lag that gives that copy
+        a batch interval to land; collect."""
+        return pipeline_batches(
+            batches,
+            lambda b, _: self._dispatch(b["image"]),
+            lambda b, h: self._cluster(h),
+            lambda b, p: copy_to_host_async(self.postprocessor.finish(p), self._copy_stream),
+            lambda b, lab: lab,
+            lambda b, lab: lab.wait().numpy(),
+        )
+
     def eval_cvppp(self, batches: Iterable[Dict[str, np.ndarray]]
                    ) -> Dict[str, float]:
         """Mean SBD and |DiC| over batches {"image", "label"[, "fg"]}.  A
         batch padded to full size (``_num_valid``, ``data/build.py``) is
         scored on its valid rows only."""
         sbd_all, diff_all, n = 0.0, 0.0, 0
-        for batch in batches:
-            labels = self.predict_labels(batch["image"])
+        for batch, labels in self._label_pipeline(batches):
             for b in range(int(batch.get("_num_valid", labels.shape[0]))):
                 seg = labels[b].astype(np.uint16)
                 if "fg" in batch:
@@ -95,8 +157,7 @@ class Evaluator:
         """Mean and std of AJI, pixel F1, detection F1 and PQ (match IoU
         0.5) over batches {"image", "label"}, on the valid rows of each."""
         scores = {"AJI": [], "F1": [], "detF1": [], "PQ": []}
-        for batch in batches:
-            labels = self.predict_labels(batch["image"])
+        for batch, labels in self._label_pipeline(batches):
             for b in range(int(batch.get("_num_valid", labels.shape[0]))):
                 gt = mb.remap_label(batch["label"][b], by_size=False)
                 pred = mb.remap_label(labels[b], by_size=False)
@@ -110,3 +171,18 @@ class Evaluator:
             res[k] = float(np.mean(v))
             res[f"{k}_std"] = float(np.std(v))
         return res
+
+    def cvppp_submission(self, batches: Iterable[Dict[str, np.ndarray]],
+                         plants: Iterable[str]) -> Iterator[Tuple[str, np.ndarray]]:
+        """(plant, u8 label map) for each valid row of the CVPPP test batches
+        {"image", "fg"}: the pipeline's labels masked by the provided
+        foreground and cleaned by ``merge_func``
+        (``pctrans_tpu/engine/trainer.py:501-533``); the k-th row takes the
+        k-th of ``plants``."""
+        plants = iter(plants)
+        for batch, labels in self._label_pipeline(batches):
+            for b in range(int(batch.get("_num_valid", labels.shape[0]))):
+                seg = labels[b].astype(np.int32)
+                if "fg" in batch:
+                    seg = seg * (batch["fg"][b] > 0).astype(np.int32)
+                yield next(plants), merge_func(seg).astype(np.uint8)

@@ -20,7 +20,16 @@ Returns the total (``"loss"``) and every raw loss as detached 0-d tensors.
 The criterion's uniform draws (:meth:`SetCriterion.draws`) come from
 ``generator`` unless the caller passes ``reid_uniform`` [B, max_instances,
 Q] and, in a point mode, ``point_draws``; a Swin backbone's drop path draws
-from ``generator`` after them.  A model with the DETR predictor is refused:
+from ``generator`` after them.
+
+Across ranks (``parallel.mesh``, one process per card) the step has the
+global batch's semantics, as the JAX step over a batch-sharded mesh: every
+draw is made for the global batch (``B`` times the world size; the draws a
+caller passes are the global batch's too) and sliced to this rank's rows,
+SyncBN and the criterion's normalisers are global, the gradients are
+averaged over the ranks after ``backward`` (before clipping), and the
+returned losses are the global batch's (their mean over the ranks).  Every
+rank must hold as many images.  A model with the DETR predictor is refused:
 it gives masks only, and the criterion needs the PCTrans predictor's
 reference points (JAX fails there at ``losses/criterion.py:391``).
 """
@@ -34,6 +43,7 @@ import torch
 from ..data.targets import targets_from_labels
 from ..losses.criterion import SetCriterion
 from ..models import PCTransModel
+from ..parallel import mesh
 from .solver import SolverConfig, clip_gradients
 
 
@@ -73,23 +83,30 @@ def make_train_step(model: PCTransModel, criterion: SetCriterion,
         images = widen_images(torch.as_tensor(batch["image"]).to(device), input_range)
         labels = torch.as_tensor(batch["label"]).to(device).int()
         targets = targets_from_labels(labels, max_instances)
+        world = mesh.world_size()
+        mesh.check_equal_across_ranks(images.shape[0], "the per-rank batch")
         if reid_uniform is None or (point_draws is None and not dense):
-            reid, drawn = criterion.draws(images.shape[0], max_instances, num_queries,
-                                          generator, device)
+            reid, drawn = criterion.draws(images.shape[0] * world, max_instances,
+                                          num_queries, generator, device)
             reid_uniform = reid if reid_uniform is None else reid_uniform
             point_draws = drawn if point_draws is None else point_draws
+        reid_uniform, point_draws = criterion.rank_draws(
+            reid_uniform.to(device), {k: v.to(device) for k, v in (point_draws or {}).items()})
         optimizer.zero_grad(set_to_none=True)
         outputs = model(images, generator=generator)
-        total, losses, _ = criterion(outputs, targets, reid_uniform.to(device),
-                                     {k: v.to(device) for k, v in point_draws.items()}
-                                     if point_draws else None)
+        total, losses, _ = criterion(outputs, targets, reid_uniform, point_draws or None)
         total.backward()
+        mesh.average_gradients(model.parameters())
         if solver is not None:
             clip_gradients(model.parameters(), solver)
         optimizer.step()
+        metrics = {"loss": total.detach(), **{k: v.detach() for k, v in losses.items()}}
+        if world > 1:
+            stacked = mesh.global_sum(torch.stack(list(metrics.values())).float()) / world
+            metrics = dict(zip(metrics, stacked.unbind()))
         if getattr(scheduler, "plateau", False):
-            scheduler.observe(float(total))
+            scheduler.observe(float(metrics["loss"]))
         scheduler.step()
-        return {"loss": total.detach(), **{k: v.detach() for k, v in losses.items()}}
+        return metrics
 
     return train_step

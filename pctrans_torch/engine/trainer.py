@@ -17,30 +17,47 @@ step and evaluator, on one device.
 * ``eval_cvppp()``: SBD and |DiC| over the val split; ``test_bbbc()``: AJI,
   F1, detection F1 and PQ over the test split; both score the valid rows of
   each padded batch and append to ``INFERENCE.OUTPUT_PATH/logging.txt``.
+* ``test_cvppp()``: the CVPPP test split through the label pipeline,
+  masked by its foreground, cleaned by ``merge_func``, as u8 maps
+  ``A1/<plant>/label`` in ``submission.h5`` (``:501-533``; ``h5py`` is
+  imported by the writer only).
 * Resume (``:103-113``): a checkpoint restores strictly, else by matching
   keys and shapes; the loop starts at the restored iteration unless
   SOLVER.ITERATION_RESTART (then at MODEL.PRE_MODEL_ITER).
+* Multi-card training (``parallel.mesh``, one process per card under
+  ``torchrun``): every rank trains on its share of the global batch with the
+  global batch's semantics (``train_step``); rank 0 alone writes the
+  checkpoints, the SWA file, ``config.yaml``, the monitor's records and
+  ``logging.txt``, profiles, and validates, while the others wait at a
+  barrier.  The SWA BatchNorm refresh runs on every rank (SyncBN's
+  statistics are collective).
+* MONITOR.PROFILE_ITERS opens a ``torch.profiler`` window (``utils/monitor``);
+  each validation logs one batch's panels (``utils/visualizer``), and a
+  failure there is printed and does not stop training.
+* INFERENCE.AUG_MODE builds the ``TestAugmentor`` in test mode for naming
+  only, as JAX does (``:165-169``); the instance chain does not use it.
 
-Not ported yet, and raising: ``test_cvppp`` (ROADMAP item 19).  The JAX
-trainer's f16 image and int16 label transfer casts and its pipelined label
-stream are workarounds for a slow host-to-TPU link and are not carried; the
-in-training visualizer waits for TensorBoard (item 23).
+The JAX trainer's f16 image and int16 label transfer casts are workarounds
+for a slow host-to-TPU link and are not carried.
 """
 
 from __future__ import annotations
 
+import itertools
 import os
 import time
-from typing import Dict, Optional
+from typing import Dict, Iterator, Optional, Tuple
 
 import numpy as np
 import torch
 
 from ..config import CfgNode, build_model_config, save_all_cfg
 from ..data.build import build_dataloader
+from ..data.cvppp import TEST_PLANTS
 from ..losses.criterion import SetCriterion, build_criterion_config
 from ..models import PCTransModel
 from ..models.resnet import convert_d2_r50_pickle
+from ..parallel import mesh
 from ..utils.monitor import build_monitor
 from . import checkpoint as ckpt
 from .evaluator import Evaluator
@@ -81,6 +98,14 @@ class Trainer:
                  checkpoint: Optional[str] = None, device=None):
         self.cfg = cfg
         self.device = resolve_device(device)
+        self.rank, self.world = mesh.rank(), mesh.world_size()
+        self.is_main = self.rank == 0
+        n_dev = int(cfg.SYSTEM.NUM_DEVICES)
+        if n_dev > 0 and n_dev != self.world:
+            raise ValueError(
+                f"SYSTEM.NUM_DEVICES {n_dev} with {self.world} process(es): train on N "
+                f"cards with one process each, torchrun --nproc_per_node={n_dev} "
+                "scripts/main_torch.py --distributed ...")
         self.model_config = build_model_config(cfg)
         self.max_instances = cfg.MODEL.MAX_INSTANCES
         self.output_dir = cfg.DATASET.OUTPUT_PATH
@@ -116,21 +141,30 @@ class Trainer:
         self.dataset = ("bbbc" if cfg.DATASET.DATA_TYPE in ("BBBC", "synthetic_bbbc")
                         else "cvppp")
         self.evaluator = Evaluator(self.model, self.top_k, self.dataset)
+        self.monitor = None
         if mode == "train":
+            # one seed on every rank: the draws are the global batch's
             generator = torch.Generator(device=self.device).manual_seed(
                 int(cfg.SYSTEM.get("SEED", 42)))
             self._train_step = make_train_step(
                 self.model, SetCriterion(build_criterion_config(cfg)),
                 self.optimizer, self.scheduler, self.max_instances, generator,
                 solver=self.solver, input_range=self.uint8_range)
-            self.monitor = build_monitor(cfg)
-            self.monitor.load_info(cfg)
-            save_all_cfg(cfg, self.output_dir)
-            self._train_data = build_dataloader(cfg, "train")
+            if self.is_main:
+                self.monitor = build_monitor(cfg)
+                self.monitor.load_info(cfg)
+                save_all_cfg(cfg, self.output_dir)
+            self._train_data = build_dataloader(cfg, "train", process_index=self.rank,
+                                                process_count=self.world)
             self.train_loader = iter(self._train_data)
         self.total_iters = cfg.SOLVER.ITERATION_TOTAL
         self.best_val = float("-inf")
         self.swa = SWAState() if mode == "train" and cfg.SOLVER.SWA.ENABLED else None
+        self.tta = None
+        if mode == "test" and cfg.INFERENCE.AUG_MODE not in (None, "None", ""):
+            from ..data.tta import TestAugmentor
+
+            self.tta = TestAugmentor.build_from_cfg(cfg)
 
     @property
     def uint8_range(self):
@@ -152,17 +186,24 @@ class Trainer:
         val_every = int(cfg.SOLVER.get("ITERATION_VAL", 0) or 0)
         swa = cfg.SOLVER.SWA
         for it in range(self.start_iter, self.total_iters):
+            if self.monitor is not None:
+                self.monitor.profile_steps(it)
             metrics = self._train_step(self.transfer_batch(next(self.train_loader)))
-            lr = self.solver.base_lr * lr_factor(it, self.solver)
-            self.monitor.update(it, metrics, lr, total_iters=self.total_iters)
+            if self.monitor is not None:
+                lr = self.solver.base_lr * lr_factor(it, self.solver)
+                self.monitor.update(it, metrics, lr, total_iters=self.total_iters)
             if self.swa is not None:
                 self.swa = maybe_update_swa(self.swa, dict(self.model.named_parameters()),
                                             it + 1, swa.START_ITER, swa.MERGE_ITER)
             if val_every and (it + 1) % val_every == 0:
-                self.validate(it + 1)
+                if self.is_main:
+                    self.validate(it + 1)
+                mesh.barrier()
             if (it + 1) % cfg.SOLVER.ITERATION_SAVE == 0 and \
                     (it + 1) >= cfg.SOLVER.START_SAVE:
-                self.save_checkpoint(it)
+                if self.is_main:
+                    self.save_checkpoint(it)
+                mesh.barrier()
                 # checkpoint_swa at each save point too: the averaged
                 # weights live in memory only between merges
                 if self.swa is not None and self.swa.params is not None:
@@ -173,7 +214,8 @@ class Trainer:
             torch.cuda.synchronize(self.device)
         self.train_loader.close()          # stops the producer thread
         self._train_data.close()           # and the item workers
-        self.monitor.close()
+        if self.monitor is not None:
+            self.monitor.close()
         return time.perf_counter() - t0
 
     def validate(self, iteration: int) -> Dict[str, float]:
@@ -188,13 +230,32 @@ class Trainer:
         else:
             res = self.eval_cvppp(loader=iter(self._val_loader), model_name=name)
             primary = res["SBD"]
-        if hasattr(self, "monitor"):
+        if self.monitor is not None:
             self.monitor.add_eval(iteration, res)
+            self._visualize_val(iteration)
         if primary > self.best_val:
             self.best_val = primary
             ckpt.save_checkpoint(self.output_dir, self.model, self.optimizer,
                                  self.scheduler, iteration, is_best=True)
         return res
+
+    def _visualize_val(self, iteration: int) -> None:
+        """One validation batch's (image, ground truth, prediction) panels
+        (``pctrans_tpu/engine/trainer.py:306-322``).  A failure here is
+        printed and training goes on: the panels are not on the measured
+        path."""
+        from ..utils.visualizer import Visualizer
+
+        try:
+            batch = next(iter(self._val_loader))
+            labels = self.predict_labels(batch["image"])
+            n = min(2, int(batch.get("_num_valid", labels.shape[0])))
+            Visualizer(self.output_dir, tb_writer=self.monitor.tb).visualize(
+                iteration, batch["image"][:n],
+                batch["label"][:n] if "label" in batch else None,
+                labels[:n].astype(np.int32))
+        except Exception as e:           # noqa: BLE001 - must not stop training
+            print(f"[visualizer] skipped: {type(e).__name__}: {e}")
 
     def save_checkpoint(self, iteration: int, is_best: bool = False) -> str:
         return ckpt.save_checkpoint(self.output_dir, self.model, self.optimizer,
@@ -204,7 +265,8 @@ class Trainer:
         """``checkpoint_swa.pth.tar``: the averaged parameters, with the
         BatchNorm statistics refreshed under them over SWA.BN_UPDATE_ITER
         train batches (which the training stream then skips, as in the JAX
-        trainer).  The live model gets its weights and statistics back."""
+        trainer).  The live model gets its weights and statistics back.
+        Every rank refreshes (SyncBN is collective); rank 0 writes."""
         live = {k: v.detach().clone() for k, v in self.model.state_dict().items()}
         with torch.no_grad():
             for name, p in self.model.named_parameters():
@@ -213,10 +275,13 @@ class Trainer:
             if has_batch_norm(self.model):
                 refresh_batch_stats(self.model, self.train_loader,
                                     self.cfg.SOLVER.SWA.BN_UPDATE_ITER)
-            return ckpt.save_checkpoint(self.output_dir, self.model, self.optimizer,
-                                        self.scheduler, iteration, name="checkpoint_swa")
+            if self.is_main:
+                return ckpt.save_checkpoint(self.output_dir, self.model, self.optimizer,
+                                            self.scheduler, iteration, name="checkpoint_swa")
+            return ""
         finally:
             self.model.load_state_dict(live)
+            mesh.barrier()
 
     def predict_labels(self, images, dataset: Optional[str] = None):
         """images [B, H, W, 3] -> int16 instance label maps [B, H, W] by
@@ -241,9 +306,28 @@ class Trainer:
         self._append_log(model_name, [res["SBD"], res["absDiffFG"]])
         return res
 
+    def cvppp_submission(self, loader=None) -> Iterator[Tuple[str, np.ndarray]]:
+        """(plant, u8 label map) for each plant of the CVPPP test split (or
+        ``loader``'s batches {"image", "fg"}), computed on the device; the
+        k-th prediction is named TEST_PLANTS[k], as the JAX writer names it."""
+        names = itertools.chain(TEST_PLANTS, (f"plant{k:03d}" for k in
+                                              itertools.count(len(TEST_PLANTS))))
+        if loader is not None:
+            yield from self.evaluator.cvppp_submission(loader, names)
+            return
+        built = build_dataloader(self.cfg, "test")
+        try:
+            yield from self.evaluator.cvppp_submission(built, names)
+        finally:
+            built.close()
+
     def test_cvppp(self, loader=None, submission: Optional[str] = None) -> str:
-        raise NotImplementedError("test_cvppp (the CVPPP test set and its "
-                                  "submission.h5): ROADMAP item 19")
+        """The CVPPP test split to ``submission.h5`` (in INFERENCE.OUTPUT_PATH
+        unless ``submission`` names the file); returns its path."""
+        path = submission or os.path.join(self.cfg.INFERENCE.OUTPUT_PATH, "submission.h5")
+        n = write_submission(path, self.cvppp_submission(loader))
+        print(f"test_cvppp: wrote {n} predictions to {path}")
+        return path
 
     def test_bbbc(self, loader=None, model_name: str = "model") -> Dict[str, float]:
         res = self._scored(self.evaluator.test_bbbc, "test", loader)
@@ -256,3 +340,20 @@ class Trainer:
         with open(os.path.join(out, "logging.txt"), "a") as f:
             f.write(model_name + "\n")
             f.write(" ".join(str(v) for v in values) + "\n")
+
+
+def write_submission(path: str, predictions) -> int:
+    """``A1/<plant>/label`` u8 datasets of (plant, label map) pairs in a new
+    h5 file at ``path``; returns how many were written."""
+    try:
+        import h5py
+    except ImportError as e:
+        raise ImportError("writing submission.h5 needs the h5py package") from e
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    n = 0
+    with h5py.File(path, "w") as f:
+        grp = f.create_group("A1")
+        for plant, seg in predictions:
+            grp.create_group(plant).create_dataset("label", data=seg)
+            n += 1
+    return n

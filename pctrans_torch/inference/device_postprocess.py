@@ -30,7 +30,8 @@ recipes (JAX narrows CVPPP's to u8, a transfer workaround).
 
 from __future__ import annotations
 
-from typing import List, Optional
+from collections import deque
+from typing import Iterable, List, Optional
 
 import numpy as np
 import torch
@@ -193,12 +194,14 @@ class DevicePostprocessor:
 
     def finish(self, pending) -> torch.Tensor:
         """CVPPP: MMI-NMS and the ascending-area order on the merged
-        statistics (one host fetch), then the paint.  Returns the label
-        tensor on the masks' device."""
+        statistics (one host fetch, or the :class:`HostCopy` the pipeline
+        started), then the paint.  Returns the label tensor on the masks'
+        device."""
         if isinstance(pending, torch.Tensor):
             return pending
         merged, m_stats, clusters = pending
-        m_areas, m_inter = unpack_mask_stats(m_stats.cpu().numpy())
+        m_stats = m_stats.wait() if isinstance(m_stats, HostCopy) else m_stats.cpu()
+        m_areas, m_inter = unpack_mask_stats(m_stats.numpy())
         B, K = m_areas.shape
         perm = np.zeros((B, K), np.int64)
         count = np.zeros((B,), np.int64)
@@ -219,3 +222,66 @@ class DevicePostprocessor:
                  inter: np.ndarray) -> np.ndarray:
         """Both stages back to back; the label maps on the host."""
         return self.finish(self.start(masks, areas, inter)).cpu().numpy()
+
+
+class HostCopy:
+    """A device-to-host copy in flight: ``wait()`` returns the host tensor.
+
+    On a CUDA tensor the copy goes into a pinned buffer of its own (one per
+    call, so no buffer is reused while a copy into it is in flight) on the
+    side ``stream``, which first waits for the work queued so far on the
+    current stream; ``record_stream`` keeps the caching allocator from
+    handing the source's memory out before the copy has read it, and the
+    consumer waits on the event recorded after the copy, never on the whole
+    device.  On the CPU the copy is done at once and there is no event."""
+
+    def __init__(self, t: torch.Tensor, stream: Optional["torch.cuda.Stream"] = None):
+        self.event = None
+        if not t.is_cuda:
+            self.host = t.detach().clone()
+            return
+        if stream is None:
+            raise ValueError("an asynchronous copy of a CUDA tensor needs a side stream")
+        self.host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+        stream.wait_stream(torch.cuda.current_stream(t.device))
+        with torch.cuda.stream(stream):
+            self.host.copy_(t, non_blocking=True)
+            self.event = torch.cuda.Event()
+            self.event.record(stream)
+        t.record_stream(stream)
+
+    def wait(self) -> torch.Tensor:
+        if self.event is not None:
+            self.event.synchronize()
+        return self.host
+
+
+def copy_to_host_async(t: torch.Tensor,
+                       stream: Optional["torch.cuda.Stream"] = None) -> HostCopy:
+    """Start ``t``'s copy to the host on ``stream`` (:class:`HostCopy`)."""
+    return HostCopy(t, stream)
+
+
+def pipeline_batches(batches: Iterable, *stages):
+    """Software pipeline of the eval loops (the JAX package's
+    ``pipeline_batches``): ``stages`` are callables ``(batch, value) ->
+    value``, stage k running one batch behind stage k-1, so each stage's
+    device work and host copies have a batch interval to land before the
+    next stage waits on them.  Stage 0 receives ``(batch, None)``.  Yields
+    ``(batch, final value)`` in input order."""
+    qs = [deque() for _ in stages]          # qs[i]: outputs of stages[i]
+
+    def _advance(force: bool):
+        for i in range(len(stages) - 1):
+            while qs[i] and (force or len(qs[i]) >= 2):
+                b, v = qs[i].popleft()
+                qs[i + 1].append((b, stages[i + 1](b, v)))
+        out = []
+        while qs[-1] and (force or len(qs[-1]) >= 2):
+            out.append(qs[-1].popleft())
+        return out
+
+    for batch in batches:
+        qs[0].append((batch, stages[0](batch, None)))
+        yield from _advance(False)
+    yield from _advance(True)

@@ -147,3 +147,38 @@ def instance_inference_bbbc(
     if pred.shape[0] == 0:
         return np.zeros(probs.shape[1:], np.int16)
     return paint_ascending_area(mask_post(pred, cluster_thres1, cluster_thres2))
+
+
+def merge_small_object(seg: np.ndarray, threshold: int = 5, window: int = 5) -> np.ndarray:
+    """Fold each instance of at most ``threshold`` pixels into the commonest
+    other id of the ``window`` x ``window`` crop at its centroid
+    (``pctrans_tpu/inference/postprocess.py:182-207``).  The crop is Python
+    slicing as in the reference: a negative start wraps, so an instance
+    within window // 2 of the top or left border is (normally) left alone.
+    This function defines the submitted labels, so it stays bit-identical."""
+    seg = seg.copy()
+    uid, uc = np.unique(seg, return_counts=True)
+    for ids, size in zip(uid, uc):
+        if size > threshold:
+            continue
+        pos_x, pos_y = np.where(seg == ids)
+        cx = int(pos_x.sum() // pos_x.size) - window // 2
+        cy = int(pos_y.sum() // pos_y.size) - window // 2
+        crop = seg[cx:cx + window, cy:cy + window]
+        t_uid, t_uc = np.unique(crop, return_counts=True)
+        rank = np.argsort(-t_uc)
+        if len(t_uc) > 2:
+            if t_uid[rank[0]] == 0:
+                max_ids = t_uid[rank[2]] if t_uid[rank[1]] == ids else t_uid[rank[1]]
+            else:
+                max_ids = t_uid[rank[0]]
+            seg[seg == ids] = max_ids
+    return seg
+
+
+def merge_func(seg: np.ndarray) -> np.ndarray:
+    """The CVPPP submission's cleanup chain
+    (``pctrans_tpu/inference/postprocess.py:210-215``)."""
+    seg = merge_small_object(seg)
+    seg = merge_small_object(seg, threshold=20, window=11)
+    return merge_small_object(seg, threshold=50, window=11)

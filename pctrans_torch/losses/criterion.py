@@ -39,6 +39,7 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
+from ..parallel import mesh
 from ..ops.point_sample import (get_uncertain_point_coords, grid_sample_bilinear,
                                 kth_largest_threshold, point_sample,
                                 sample_label_onehot, sample_label_onehot_grid,
@@ -179,6 +180,15 @@ class SetCriterion:
             draws["fill"] = uniform(L, B * G, num_random, 2)
         return reid, draws
 
+    def rank_draws(self, reid: torch.Tensor, draws: Dict[str, torch.Tensor]
+                   ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """This rank's rows of :meth:`draws` made for the global batch: the
+        images' axis of each draw (``B`` or the image-major ``B * G``), so
+        that N ranks draw what one process at the global batch draws."""
+        batch_dim = {"match": 1, "points": 2, "fill": 1}
+        return (mesh.rank_rows(reid, 0),
+                {k: mesh.rank_rows(v, batch_dim[k]) for k, v in draws.items()})
+
     def mask_losses(self, stacked: torch.Tensor, tgt_dense: torch.Tensor,
                     indices: torch.Tensor, valid: torch.Tensor,
                     num_masks: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -282,14 +292,16 @@ class SetCriterion:
         return (l1 * valid).sum((1, 2)) / num_masks
 
     @staticmethod
-    def sem_loss(sem_logits: torch.Tensor, fg: torch.Tensor) -> torch.Tensor:
+    def sem_loss(sem_logits: torch.Tensor, fg: torch.Tensor,
+                 world: int = 1) -> torch.Tensor:
         """Focal loss on the foreground map subsampled at the logits' stride
-        (``criterion.py:287-300``)."""
+        (``criterion.py:287-300``), over the global count of positives."""
         Hs = sem_logits.shape[1]
         stride = fg.shape[1] // Hs
         tgt = fg[:, stride // 2::stride, stride // 2::stride][..., None]
         tgt = tgt.to(sem_logits.dtype)
-        num_pos = (tgt > 0).sum().to(sem_logits.dtype).clamp(min=1.0)
+        num_pos = (mesh.global_sum((tgt > 0).sum().to(sem_logits.dtype)).clamp(min=1.0)
+                   / world)
         p = torch.sigmoid(sem_logits)
         ce = bce_logits(sem_logits, tgt)
         p_t = p * tgt + (1 - p) * (1 - tgt)
@@ -361,7 +373,12 @@ class SetCriterion:
         tgt_dense = None
         if indices is None:
             indices, tgt_dense = self.match(stacked, targets, point_draws)
-        num_masks = valid.sum().float().clamp(min=1.0)
+        # the global batch's count over the ranks, as JAX's ``valid.sum()``
+        # over the batch-sharded mesh; each rank's term is then
+        # world * (its sum) / (the global count), so the mean over ranks
+        # (DDP's rule for the gradient) is the global batch's term
+        world = mesh.world_size()
+        num_masks = mesh.global_sum(valid.sum().float()).clamp(min=1.0) / world
         losses: Dict[str, torch.Tensor] = {}
         weights: Dict[str, float] = {}
 
@@ -402,7 +419,7 @@ class SetCriterion:
             query, cosine_similarity_matrix(query),
             pairwise_mask_dice(outputs["pred_masks"]), indices[-1], valid,
             reid_uniform)
-        denom = n_items.sum().float().clamp(min=1.0)
+        denom = mesh.global_sum(n_items.sum().float()).clamp(min=1.0) / world
         losses["loss_reid_query"] = cq.sum() / denom
         losses["loss_reid_query_aux"] = aq.sum() / denom
         losses["loss_reid_mask"] = cm.sum() / denom
@@ -411,9 +428,12 @@ class SetCriterion:
         weights["loss_reid_mask"] = c.reid_mask_weight
 
         if c.sem_loss_on and outputs.get("sem_mask") is not None:
-            losses["loss_sem"] = self.sem_loss(outputs["sem_mask"], targets["fg_mask"])
+            losses["loss_sem"] = self.sem_loss(outputs["sem_mask"], targets["fg_mask"],
+                                               world)
             weights["loss_sem"] = c.sem_weight
 
+        # a mean over this rank's images: the global mean only when every
+        # rank holds as many (the train step checks it)
         losses["loss_emb"] = discriminative_loss(
             outputs["mask_features"], targets["seg"], valid.shape[1])
         weights["loss_emb"] = c.emb_weight

@@ -13,6 +13,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..parallel import mesh
+
 
 class FrozenBatchNorm(nn.Module):
     """BatchNorm with frozen statistics and affine (``layers.py:38-61``).
@@ -41,31 +43,59 @@ class BatchNorm(nn.BatchNorm2d):
     Train mode normalises with the batch statistics and updates the running
     ones with momentum 0.1 from the *biased* batch variance, as flax does
     (``nn.BatchNorm2d`` would use the unbiased one).  Eval mode uses the
-    running statistics.  SyncBN on one card is this module.
+    running statistics.
+
+    ``sync`` (SyncBN): under a process group of more than one rank the
+    statistics are the global batch's, as JAX computes them over the
+    batch-sharded mesh: the per-channel sum and count, then the sum of
+    squared deviations from the global mean, all-reduced in f32 with the
+    gradient flowing through (``nn.SyncBatchNorm`` would update the running
+    variance with the unbiased one).
     """
 
-    def __init__(self, features: int):
+    def __init__(self, features: int, sync: bool = False):
         super().__init__(features, eps=1e-5, momentum=0.1)
+        self.sync = sync
+
+    def _update_running(self, mean: torch.Tensor, var: torch.Tensor) -> None:
+        with torch.no_grad():
+            m = self.momentum
+            self.running_mean.mul_(1.0 - m).add_(mean.detach() * m)
+            self.running_var.mul_(1.0 - m).add_(var.detach() * m)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training:
             return super().forward(x)
+        if self.sync and mesh.is_distributed():
+            return self._synced(x)
         with torch.no_grad():
             var, mean = torch.var_mean(x.float(), dim=(0, 2, 3), unbiased=False)
-            m = self.momentum
-            self.running_mean.mul_(1.0 - m).add_(mean * m)
-            self.running_var.mul_(1.0 - m).add_(var * m)
+        self._update_running(mean, var)
         return F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0,
                             self.eps)
+
+    def _synced(self, x: torch.Tensor) -> torch.Tensor:
+        xf = x.float()
+        count = torch.full((1,), xf.numel() / xf.shape[1], dtype=torch.float32,
+                           device=x.device)
+        sums = mesh.all_reduce_sum(torch.cat([xf.sum((0, 2, 3)), count]))
+        n = sums[-1]
+        mean = sums[:-1] / n
+        centred = xf - mean[:, None, None]
+        var = mesh.all_reduce_sum((centred * centred).sum((0, 2, 3))) / n
+        self._update_running(mean, var)
+        y = centred * torch.rsqrt(var + self.eps)[:, None, None]
+        return (y * self.weight[:, None, None] + self.bias[:, None, None]).to(x.dtype)
 
 
 def get_norm(name: str, features: int) -> Optional[nn.Module]:
     """detectron2 ``get_norm`` mirror (``layers.py:64-86``): BN and SyncBN
-    are :class:`BatchNorm` (eps 1e-5), GN has 32 groups."""
+    are :class:`BatchNorm` (eps 1e-5; SyncBN's statistics are the global
+    batch's across ranks), GN has 32 groups."""
     if not name:
         return None
     if name in ("BN", "SyncBN"):
-        return BatchNorm(features)
+        return BatchNorm(features, sync=name == "SyncBN")
     if name == "GN":
         return nn.GroupNorm(32, features, eps=1e-5)
     if name == "FrozenBN":

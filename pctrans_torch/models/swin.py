@@ -28,6 +28,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..parallel import mesh
+
 
 def window_partition(x: torch.Tensor, ws: int) -> torch.Tensor:
     """[B, H, W, C] -> [B*nW, ws*ws, C] (``swin.py:30-34``)."""
@@ -72,9 +74,11 @@ def drop_path(x: torch.Tensor, rate: float, generator: Optional[torch.Generator]
               ) -> torch.Tensor:
     """Zero each sample's branch with probability ``rate``, scale the kept
     ones by 1 / (1 - rate): flax ``nn.Dropout(rate, broadcast_dims=(1, 2))``
-    on [B, L, C] (``swin.py:160-165``)."""
+    on [B, L, C] (``swin.py:160-165``).  Across ranks the draw is the
+    global batch's, sliced to this rank's rows."""
     keep = 1.0 - rate
-    draw = torch.rand((x.shape[0], 1, 1), generator=generator, device=x.device)
+    draw = mesh.rank_rows(torch.rand((x.shape[0] * mesh.world_size(), 1, 1),
+                                     generator=generator, device=x.device))
     return torch.where(draw < keep, x / keep, torch.zeros((), dtype=x.dtype, device=x.device))
 
 

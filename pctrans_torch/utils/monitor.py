@@ -3,8 +3,11 @@ term and the LR to ``metrics.jsonl`` every ``MONITOR.ITERATION_NUM[0]``
 iterations, eval records beside them, TensorBoard when its writer imports,
 and a console line with the marginal time per iteration and the ETA.
 
-The profiler window (``MONITOR.PROFILE_ITERS``) comes with ROADMAP item 23
-and raises until then.
+``MONITOR.PROFILE_ITERS [start, stop]``: :meth:`Monitor.profile_steps`
+traces iterations ``start .. stop - 1`` with ``torch.profiler`` (CPU and,
+on a card, CUDA activity) and writes a Chrome trace under
+``OUTPUT_PATH/profile/``.  A run resumed past ``start`` still traces what is
+left of the window.  The trainer builds the monitor on rank 0 only.
 """
 
 from __future__ import annotations
@@ -14,10 +17,12 @@ import os
 import time
 from typing import Dict, Optional
 
+import torch
+
 
 class Monitor:
     def __init__(self, output_dir: str, log_every: int = 20,
-                 use_tensorboard: bool = True):
+                 use_tensorboard: bool = True, profile_iters: Optional[tuple] = None):
         self.output_dir = output_dir
         os.makedirs(output_dir, exist_ok=True)
         self.log_every = max(1, log_every)
@@ -32,6 +37,42 @@ class Monitor:
                 self.tb = None
         self._last = time.perf_counter()
         self._last_iter: Optional[int] = None
+        self.profile_iters = tuple(int(i) for i in profile_iters) if profile_iters else None
+        self._profiler = None
+        self._window: Optional[tuple] = None      # the traced (start, stop)
+        self.trace_path: Optional[str] = None
+
+    def profile_steps(self, iteration: int) -> None:
+        """Start or stop the profiler window; call once per iteration,
+        before its step.  ``>= start``, not ``== start``: a resumed run
+        still traces the rest of the window."""
+        if self.profile_iters is None:
+            return
+        start, stop = self.profile_iters
+        if start <= iteration < stop and self._profiler is None:
+            from torch.profiler import ProfilerActivity, profile
+
+            activities = [ProfilerActivity.CPU]
+            if torch.cuda.is_available():
+                activities.append(ProfilerActivity.CUDA)
+            self._profiler = profile(activities=activities)
+            self._profiler.__enter__()
+            self._window = (iteration, stop)
+            print(f"[profiler] tracing iterations {iteration}..{stop - 1}")
+        elif iteration >= stop and self._profiler is not None:
+            self._stop_profile()
+
+    def _stop_profile(self) -> None:
+        if torch.cuda.is_available():
+            torch.cuda.synchronize()
+        self._profiler.__exit__(None, None, None)
+        trace_dir = os.path.join(self.output_dir, "profile")
+        os.makedirs(trace_dir, exist_ok=True)
+        start, stop = self._window
+        self.trace_path = os.path.join(trace_dir, f"trace_{start:06d}_{stop:06d}.json")
+        self._profiler.export_chrome_trace(self.trace_path)
+        self._profiler = None
+        print(f"[profiler] Chrome trace -> {self.trace_path}")
 
     def load_info(self, cfg) -> None:
         if self.tb is not None:
@@ -68,15 +109,16 @@ class Monitor:
                 self.tb.add_scalar(f"eval/{k}", float(v), iteration)
 
     def close(self) -> None:
+        if self._profiler is not None:      # the window outlasted the run
+            self._stop_profile()
         self.jsonl.close()
         if self.tb is not None:
             self.tb.close()
 
 
 def build_monitor(cfg) -> Monitor:
-    if cfg.MONITOR.get("PROFILE_ITERS", None):
-        raise NotImplementedError("MONITOR.PROFILE_ITERS: the torch.profiler "
-                                  "window is ROADMAP item 23, not ported yet")
     log_every = cfg.MONITOR.ITERATION_NUM[0] if cfg.MONITOR.ITERATION_NUM else 20
+    profile = cfg.MONITOR.get("PROFILE_ITERS", None)
     return Monitor(cfg.DATASET.OUTPUT_PATH, log_every=log_every,
-                   use_tensorboard=bool(cfg.MONITOR.get("TENSORBOARD", True)))
+                   use_tensorboard=bool(cfg.MONITOR.get("TENSORBOARD", True)),
+                   profile_iters=tuple(profile) if profile else None)

@@ -163,8 +163,7 @@ def test_synthetic_bbbc_batches_equal_the_jax_loader(mode):
     assert max(int(b["label"].max()) for b in got) >= 3
 
 
-@pytest.mark.parametrize("data_type,item", [
-    ("cellpose", "21a"), ("monuseg", "21a"), ("volume", "26"), ("tile", "26")])
+@pytest.mark.parametrize("data_type,item", [("volume", "26"), ("tile", "26")])
 def test_unported_datasets_name_their_roadmap_item(data_type, item):
     cfg = config.load_cfg(opts=["DATASET.DATA_TYPE", data_type])
     with pytest.raises(NotImplementedError, match=f"ROADMAP item {item} "):

@@ -19,9 +19,10 @@ from pctrans_torch.ops.resize_binarize import resize_bilinear_binarize
 torch.set_num_threads(1)
 
 REPO = Path(__file__).resolve().parents[1]
-FORBIDDEN = ("jax", "flax", "optax", "orbax", "triton", "yaml", "h5py")
-# the CVPPP reader imports these at its first read, never at import
-LAZY = ("PIL", "cv2")
+FORBIDDEN = ("jax", "flax", "optax", "orbax", "triton", "yaml")
+# the dataset readers import these at their first read and the submission
+# writer h5py when it writes, never at import
+LAZY = ("PIL", "cv2", "h5py")
 SCRIPTS = [REPO / "scripts" / "main_torch.py", REPO / "scripts" / "eval_torch.py"]
 
 _IMPORT_ALL = f"""
@@ -50,9 +51,9 @@ def test_importing_every_module_loads_no_jax_triton_yaml_or_image_library():
 
 def test_port_and_smoke_import_nothing_of_the_jax_package():
     """Neither chip_smoke.py, the port's two scripts nor any port module
-    names JAX, Triton, YAML, h5py or the JAX package ``pctrans_tpu`` in an
-    import, at module level or inside a function (the card's machine has no
-    JAX and no PyYAML)."""
+    names JAX, Triton, YAML or the JAX package ``pctrans_tpu`` in an import,
+    at module level or inside a function (the card's machine has no JAX and
+    no PyYAML), nor PIL, cv2 or h5py at module level."""
     files = [REPO / "chip_smoke.py", *SCRIPTS,
              *sorted((REPO / "pctrans_torch").rglob("*.py"))]
     banned = set(FORBIDDEN) | {"pctrans_tpu"}
@@ -66,6 +67,13 @@ def test_port_and_smoke_import_nothing_of_the_jax_package():
             else:
                 continue
             found += [(f.name, n) for n in names if n.split(".")[0] in banned]
+        for node in ast.parse(f.read_text()).body:      # module level
+            if isinstance(node, ast.Import):
+                found += [(f.name, a.name) for a in node.names
+                          if a.name.split(".")[0] in LAZY]
+            elif isinstance(node, ast.ImportFrom) and node.module \
+                    and node.module.split(".")[0] in LAZY:
+                found.append((f.name, node.module))
     assert len(files) >= 46 and found == []
 
 

@@ -205,14 +205,18 @@ def test_cli_without_a_card_raises(tmp_path):
         eval_torch.main(["--start", "0", "--opts", *opts])
 
 
-def test_cli_distributed_raises(tmp_path):
-    with pytest.raises(NotImplementedError, match="slice 4"):
+def test_cli_distributed_raises(tmp_path, monkeypatch):
+    """--distributed without the env:// variables of a launcher raises and
+    names them: it never trains as an independent single process."""
+    for k in ("MASTER_ADDR", "MASTER_PORT", "WORLD_SIZE", "RANK"):
+        monkeypatch.delenv(k, raising=False)
+    with pytest.raises(RuntimeError, match="MASTER_ADDR.*torchrun"):
         main_torch.main(["--distributed", "--device", "cpu",
                          "--opts", *tiny_opts(tmp_path)])
 
 
 @pytest.mark.parametrize("key,value,item", [
-    ("MONITOR.PROFILE_ITERS", "[1, 2]", "23"),
+    ("DATASET.DATA_TYPE", "volume", "26"),
 ])
 def test_unported_trainer_settings_raise(tmp_path, key, value, item):
     cfg = config.load_cfg(opts=tiny_opts(tmp_path) + [key, value])
