@@ -1,7 +1,8 @@
 """On-card smoke run of the PyTorch/CUDA port's CVPPP and BBBC eval and train
 paths, of the alternative components (Swin-T, the FPN decoders, the DETR
 predictor, the stride-8 FPN swap), of multi-process training, the label
-pipeline, the CVPPP submission and the monitor's profiler window.
+pipeline, the CVPPP submission, the monitor's profiler window, the on-disk
+dataset readers and the legacy U-Nets.
 
     python3 chip_smoke.py        # one CUDA card; exits non-zero on any failure
 
@@ -36,7 +37,10 @@ Phases:
      beside the oracle's; the host fetches of one ``predict_labels`` (the
      statistics and the label map, no mask stack); then K1 gated and timed
      on the value, locations and weights one bf16 forward gives it, and K5
-     on those of one bf16 forward under ``PCTRANS_MSDA_IMPL=pallas``;
+     on those of one bf16 forward under ``PCTRANS_MSDA_IMPL=pallas``; then
+     the recipe's dtype map (every module's output dtypes, eval and train
+     mode, at 64x64) on the card against a CPU copy: equal, or the phase
+     fails;
   6b. the bf16 BBBC recipe as served (``BBBC_RECIPE``: Q=300, TOP_K 160,
      threshold 0.05): ``Evaluator(dataset="bbbc")`` over three batches of
      two 520x696 nuclei scenes (50-148 nuclei of radius 10-22 px) through
@@ -114,9 +118,24 @@ Phases:
   13. ``scripts/main_torch.py`` with ``MONITOR.PROFILE_ITERS [2, 3]`` and a
      validation: the Chrome trace holds K1 and K2 kernel events and the
      validation panels are PNG files;
-  14. one JSON line of kernel results (each with its bound on the card and,
-     where one PyTorch call computes the same function, that call's time),
-     then the final status line.
+  14. the on-disk readers: CVPPP A1 and BBBC039 fixture trees written here
+     by ``pctrans_torch.data.fixtures`` (the probe line says whether PIL
+     and cv2 import); (a) ``scripts/scan_dataset_torch.py`` over both; (b)
+     ``scripts/eval_torch.py`` with the published YAMLs and DATA_TYPE
+     CVPPP / BBBC over phase 8's checkpoints (the CVPPP val split, the BBBC
+     test split, then its validation split through ``Trainer.test_bbbc``;
+     K1 = 6, K3 = 10, K4 = 1 per forward); (c) ``scripts/main_torch.py``
+     with DATA_TYPE CVPPP, then BBBC, 2 iterations over the train split
+     (cv2's augmentations) and a validation (K1 = K2 = 6 per step);
+  15. the legacy U-Nets from ``build_architecture`` at its defaults:
+     ``unet_3d`` and ``unet_plus_3d`` on [2, 1, 8, 256, 256], ``unet_2d``
+     and ``unet_plus_2d`` on [2, 1, 256, 256], one f32 step each (the
+     two-term ``LegacyCriterion``, backward, AdamW) on the card against a
+     CPU copy (losses and gradient norm within rel 1e-3), then ms per step
+     (CUDA events) and peak GiB; no kernel of the repo runs there;
+  then one JSON line of kernel results (each with its bound on the card
+  and, where one PyTorch call computes the same function, that call's
+  time), the card line and the final status line.
 
 Synthetic scenes come from ``pctrans_torch.data.synthetic``; nothing here
 or in ``pctrans_torch`` imports JAX or the JAX package.
@@ -1234,10 +1253,13 @@ def cvppp_entry_args(tmp):
     return cfg_args, opts
 
 
-def entry_points(card):
+def entry_points(card, keep: Path):
     """``scripts/main_torch.py`` as a user runs it, under
     ``PCTRANS_MSDA_IMPL=pallas`` (K5), then ``scripts/eval_torch.py`` over
-    its checkpoints under the default dispatch (K1)."""
+    its checkpoints under the default dispatch (K1).  The last checkpoint is
+    copied into ``keep`` (phase 14 scores it on the on-disk tree)."""
+    import shutil
+
     import pctrans_torch.engine.trainer as trainer_module
     from pctrans_torch.ops.msdeform import (ms_deform_attn, ms_deform_attn_backward,
                                             ms_deform_attn_separable)
@@ -1321,16 +1343,20 @@ def entry_points(card):
             raise AssertionError("the sweep did not score the two checkpoints")
         if k4 < 4 or [k1, k3, k5, k2] != [c.enc_layers * k4, (c.dec_layers + 1) * k4, 0, 0]:
             raise AssertionError("sweep launch counts do not match its forwards")
+        keep.mkdir(parents=True)
+        shutil.copy(Path(tmp, f"checkpoint_{ENTRY_ITERS:06d}.pth.tar"), keep)
     return k5_train, phase8_train
 
 
-def entry_points_bbbc(card):
+def entry_points_bbbc(card, keep: Path):
     """``scripts/main_torch.py`` with the two BBBC YAMLs on ``synthetic_bbbc``
     (2 bf16 iterations at 512x512 batch 2, MAX_INSTANCES 128, a checkpoint
     and a validation at 2: ``test_bbbc``, AJI to ``logging.txt``,
     ``checkpoint_best``), then ``scripts/eval_torch.py --name bbbc`` over its
-    checkpoint; the default dispatch (K1).  Returns the run's launches
-    (K1, K2, K3, K4)."""
+    checkpoint; the default dispatch (K1).  The checkpoint is copied into
+    ``keep``.  Returns the run's launches (K1, K2, K3, K4)."""
+    import shutil
+
     from pctrans_torch.ops.msdeform import ms_deform_attn, ms_deform_attn_backward
     from pctrans_torch.ops.render import dynamic_mask_render
     from pctrans_torch.ops.resize_binarize import resize_bilinear_binarize
@@ -1399,14 +1425,23 @@ def entry_points_bbbc(card):
             raise AssertionError("the BBBC sweep did not score the checkpoint")
         if k4 < 4 or [k1, k3, k2] != [c.enc_layers * k4, (c.dec_layers + 1) * k4, 0]:
             raise AssertionError("BBBC sweep launch counts do not match its forwards")
+        keep.mkdir(parents=True)
+        shutil.copy(Path(tmp, f"checkpoint_{it:06d}.pth.tar"), keep)
     return launches
 
 
 def criterion_card_vs_cpu(crit, outputs, targets, reid, draws) -> float:
     """The criterion on the card and on a CPU copy of the same outputs,
     targets and draws: every loss (both at the card's assignment) and each
-    lane's matched cost (each side at its own) within CRITERION_RTOL.
-    Returns the largest relative difference."""
+    lane's matched cost (each side at its own) within CRITERION_RTOL.  The
+    re-id clusters are an argmax over the queries' cosine similarities, so
+    where a near-tie falls the other way on the CPU, its re-id terms are
+    taken again at the card's similarities, and the similarities are held
+    within CRITERION_RTOL on their own.  Returns the largest relative
+    difference."""
+    from pctrans_torch.losses.contrast import (_clusters, cosine_similarity_matrix,
+                                               pairwise_mask_dice, reid_losses)
+
     def cpu(t):
         return t.detach().cpu()
 
@@ -1427,6 +1462,18 @@ def criterion_card_vs_cpu(crit, outputs, targets, reid, draws) -> float:
         c_idx, c_cost = matched(torch.stack(c_out["aux_masks"] + [c_out["pred_masks"]]),
                                 c_tgt, c_draws)
         _, c_losses, _ = crit(c_out, c_tgt, cpu(reid), c_draws, indices=cpu(idx))
+        sims = cpu(cosine_similarity_matrix(outputs["query_emb"]))
+        c_sims = cosine_similarity_matrix(c_out["query_emb"])
+        keys, valid = cpu(idx[-1]), c_tgt["valid"]
+        moved = int((_clusters(sims, keys, valid)[0] != _clusters(c_sims, keys, valid)[0])
+                    .any(-1).sum())
+        if moved:
+            cq, aq, cm, n = reid_losses(c_out["query_emb"], sims,
+                                        pairwise_mask_dice(c_out["pred_masks"]), keys, valid,
+                                        cpu(reid))
+            n = n.sum().float().clamp(min=1.0)
+            c_losses.update(loss_reid_query=cq.sum() / n, loss_reid_query_aux=aq.sum() / n,
+                            loss_reid_mask=cm.sum() / n)
     worst = 0.0
     pairs = [(f"matched cost {l},{b}", float(cost[l, b]), float(c_cost[l, b]))
              for l in range(cost.shape[0]) for b in range(cost.shape[1])]
@@ -1436,10 +1483,15 @@ def criterion_card_vs_cpu(crit, outputs, targets, reid, draws) -> float:
         worst = max(worst, rel)
         if not (math.isfinite(a) and rel <= CRITERION_RTOL):
             raise AssertionError(f"criterion card vs CPU, {name}: {a} against {b}")
+    sims_rel = rel_fro(sims, c_sims)
+    if not sims_rel <= CRITERION_RTOL:
+        raise AssertionError(f"criterion card vs CPU, query cosine similarities: {sims_rel}")
     flips = int((idx.cpu() != c_idx)[:, targets["valid"].cpu()].sum())
     print(f"  criterion card vs CPU: {len(losses)} losses and {cost.numel()} matched costs "
-          f"within rel {worst:.2e}; {flips} slots matched to another query at equal cost")
-    return worst
+          f"within rel {worst:.2e}; {flips} slots matched to another query at equal cost; "
+          f"query similarities rel-Fro {sims_rel:.2e}, {moved} re-id cluster(s) of another "
+          "membership at a near-tie (their terms taken at the card's similarities)")
+    return max(worst, sims_rel)
 
 
 def train_sampled_modes(dev, card) -> dict:
@@ -2269,6 +2321,322 @@ def monitoring_phase(card):
     raise AssertionError(f"13: {MONITOR_TRIES} traces without K1 and K2 events")
 
 
+# ---------------------------------------------------------- phase 6: dtypes
+DTYPE_MAP_HW = (64, 64)        # a module's output dtype does not depend on the size
+# the recipe's stages whose dtypes phase 6 prints (JAX's: ROADMAP §C.18)
+DTYPE_STAGES = ("backbone", "pixel_decoder.input_gn.0", "pixel_decoder.encoder_layer.0.norm1",
+                "pixel_decoder.adapter.0", "pixel_decoder.layer.0", "predictor.ref_point_head",
+                "predictor.controller", "predictor.mask_head", "predictor.seg_head.1",
+                "predictor.sem_logits", "predictor.cross_layers.0", "predictor.ffn_layers.0",
+                "predictor.decoder_norm")
+
+
+def dtype_map_phase(dev, card) -> None:
+    """The bf16 dtype map (``module_dtypes``: every module's output dtypes)
+    of the CVPPP recipe, of Swin-T and of each of ``ALT_COMBINATIONS``, in
+    eval and in train mode, on the card and on a CPU copy with the same
+    weights, at 64x64: CUDA and CPU autocast list other ops, so the port
+    fixes each dtype in its module, and any module whose dtype differs
+    between the two fails the phase."""
+    import collections
+    import copy
+
+    from pctrans_torch.config import CVPPP_RECIPE
+    from pctrans_torch.models.pctrans import module_dtypes
+
+    x = torch.from_numpy(next(scene_batches(1, SEED + 7, batch=1, hw=DTYPE_MAP_HW))["image"])
+    configs = [("CVPPP", CVPPP_RECIPE), ("Swin-T", swin_recipe())] + [
+        (name, dataclasses.replace(CVPPP_RECIPE, **over)) for name, over in ALT_COMBINATIONS]
+    for name, config in configs:
+        model = build_model(config, dev)
+        for mode in ("eval", "train"):
+            train = mode == "train"
+            on_card = module_dtypes(copy.deepcopy(model).train(train), x.to(dev))
+            on_cpu = module_dtypes(copy.deepcopy(model).cpu().train(train), x)
+            differ = sorted(n for n in set(on_card) | set(on_cpu)
+                            if on_card.get(n) != on_cpu.get(n))
+            counts = collections.Counter(on_card.values())
+            print(f"bf16 {name} dtype map, {mode} mode: {len(on_card)} modules, "
+                  + "; ".join(f"{n} x {sig}" for sig, n in counts.most_common(3))
+                  + f"; {len(differ)} differ between the card and the CPU, on {card}")
+            if config is CVPPP_RECIPE:
+                print("  stages: " + ", ".join(f"{n} {on_card[n]}" for n in DTYPE_STAGES))
+            if differ:
+                raise AssertionError(
+                    f"{name}, {mode}-mode dtypes differ between the card and the CPU: "
+                    + ", ".join(f"{n} card {on_card.get(n)} cpu {on_cpu.get(n)}"
+                                for n in differ[:20]))
+        del model
+
+
+# ------------------------------------------------- phase 14: on-disk trees
+FIXTURE_ITERS = 2              # iterations of each main_torch.py run of phase 14 (c)
+
+
+def cvppp_yamls():
+    return ["--config-base", str(REPO / "configs/CVPPP/CVPPP-PCTrans-Base.yaml"),
+            "--config-file", str(REPO / "configs/CVPPP/CVPPP-PCTrans.yaml")]
+
+
+def bbbc_yamls():
+    return ["--config-base", str(REPO / "configs/BBBC/BBBC-PCTrans-Base.yaml"),
+            "--config-file", str(REPO / "configs/BBBC/BBBC-PCTrans.yaml")]
+
+
+def fixture_phase(card, ckpts: Path):
+    """Phase 14: fixture trees in the CVPPP A1 and BBBC039 layouts, written
+    by ``pctrans_torch.data.fixtures`` on this machine, through the on-disk
+    readers: (a) ``scan_dataset_torch.py`` over both; (b)
+    ``eval_torch.py`` with the published YAMLs and DATA_TYPE CVPPP / BBBC
+    over phase 8's checkpoints in ``ckpts`` (the CVPPP val split by
+    SBD/|DiC|, the BBBC test split by AJI/PQ; then BBBC's validation split
+    through the Trainer): K1 = 6, K3 = 10, K4 = 1 per forward; (c)
+    ``main_torch.py`` with DATA_TYPE CVPPP, then BBBC, FIXTURE_ITERS
+    iterations over the train split with the train-time augmentations (cv2)
+    and a validation: K1 = 6 per step and forward, K2 = 6 per step.
+    Returns the launches [(K1, K2, K3, K4) of (b) CVPPP, (b) BBBC, (c)
+    CVPPP, (c) BBBC]."""
+    import importlib
+
+    probe = []
+    for name in ("PIL", "cv2"):
+        try:
+            probe.append(f"{name} {importlib.import_module(name).__version__}")
+        except ImportError as e:
+            probe.append(f"{name} does not import ({e})")
+    print("phase 14 probe: " + ", ".join(probe))
+    from pctrans_torch.data.build import build_dataloader
+    from pctrans_torch.data.fixtures import write_bbbc_fixture, write_cvppp_fixture
+    from pctrans_torch.engine import checkpoint as ckpt
+    from pctrans_torch.engine.trainer import Trainer
+    from pctrans_torch.ops.msdeform import ms_deform_attn, ms_deform_attn_backward
+    from pctrans_torch.ops.render import dynamic_mask_render
+    from pctrans_torch.ops.resize_binarize import resize_bilinear_binarize
+
+    sys.path.insert(0, str(REPO / "scripts"))
+    import eval_torch
+    import main_torch
+    import scan_dataset_torch
+
+    counters = (ms_deform_attn, ms_deform_attn_backward, dynamic_mask_render,
+                resize_bilinear_binarize)
+    runs = []
+    (REPO / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=REPO / "build") as tmp:
+        t0 = time.perf_counter()
+        trees = {"CVPPP": (f"{tmp}/cvppp", cvppp_yamls(), write_cvppp_fixture(
+                     f"{tmp}/cvppp", n_train=4, n_val=4, n_test=1, size=IMAGE_HW,
+                     seed=SEED)),
+                 "BBBC": (f"{tmp}/bbbc", bbbc_yamls(), write_bbbc_fixture(
+                     f"{tmp}/bbbc", n_train=2, n_val=2, n_test=2, size=BBBC_HW,
+                     seed=SEED))}
+        print(f"fixture trees written in {time.perf_counter() - t0:.2f} s: "
+              + "; ".join(f"{k} {dict((s, len(n)) for s, n in v[2].items())}"
+                          for k, v in trees.items()))
+        for dt, (root, yamls, _) in trees.items():                       # (a)
+            for mode in ("train", "val", "test") if dt == "BBBC" else ("train", "val"):
+                print(f"(a) scan_dataset_torch.py, {dt} {mode}:")
+                scan_dataset_torch.main(yamls + ["--mode", mode, "--samples", "6", "--opts",
+                                                 "DATASET.DATA_TYPE", dt,
+                                                 "DATASET.INPUT_PATH", root])
+
+        def counted(name, fn, metrics, forwards_only):
+            for c in counters:
+                c.launches = 0
+            t0 = time.perf_counter()
+            out = fn()
+            wall = time.perf_counter() - t0
+            k1, k2, k3, k4 = [c.launches for c in counters]
+            print(f"{name}: {out}; launches K1 {k1}, K2 {k2}, K3 {k3}, K4 {k4}; "
+                  f"wall {wall:.3f} s, on {card}")
+            records = out if isinstance(out, list) else [out]
+            if not records or not all(math.isfinite(r[k]) for r in records for k in metrics):
+                raise AssertionError(f"{name}: metrics {out}")
+            if forwards_only and (k4 < 1 or [k1, k2, k3] != [6 * k4, 0, 10 * k4]):
+                raise AssertionError(f"{name}: launch counts do not match its forwards")
+            runs.append((k1, k2, k3, k4))
+            return out
+
+        for dt, metrics in (("CVPPP", ("SBD", "absDiffFG")),                # (b)
+                            ("BBBC", ("AJI", "F1", "detF1", "PQ"))):
+            root, yamls, _ = trees[dt]
+            opts = ["DATASET.DATA_TYPE", dt, "DATASET.INPUT_PATH", root,
+                    "DATASET.OUTPUT_PATH", str(ckpts / dt),
+                    "INFERENCE.OUTPUT_PATH", f"{tmp}/eval_{dt}"]
+            counted(f"(b) eval_torch.py, {dt} over {root}",
+                    lambda: eval_torch.main(yamls + ["--start", "0", "--opts", *opts]),
+                    metrics, True)
+        root, yamls, _ = trees["BBBC"]
+        from pctrans_torch.config import load_cfg, update_inference_cfg
+        cfg = update_inference_cfg(load_cfg(*yamls[1::2], [
+            "DATASET.DATA_TYPE", "BBBC", "DATASET.INPUT_PATH", root,
+            "INFERENCE.OUTPUT_PATH", f"{tmp}/val_BBBC"], freeze=False))
+        trainer = Trainer(cfg, mode="test")
+        ckpt.restore_checkpoint(ckpt.list_checkpoints(str(ckpts / "BBBC"))[-1], trainer.model)
+        loader = build_dataloader(cfg, "val")
+        try:
+            counted("(b) the BBBC validation split through Trainer.test_bbbc",
+                    lambda: trainer.test_bbbc(loader=loader), ("AJI", "F1", "detF1", "PQ"),
+                    True)
+        finally:
+            loader.close()
+
+        for dt, metrics in (("CVPPP", ("SBD", "absDiffFG")),                # (c)
+                            ("BBBC", ("AJI", "PQ"))):
+            root, yamls, _ = trees[dt]
+            out = f"{tmp}/train_{dt}"
+            opts = ["DATASET.DATA_TYPE", dt, "DATASET.INPUT_PATH", root,
+                    "SOLVER.ITERATION_TOTAL", str(FIXTURE_ITERS),
+                    "SOLVER.ITERATION_SAVE", str(FIXTURE_ITERS), "SOLVER.START_SAVE", "0",
+                    "SOLVER.ITERATION_VAL", str(FIXTURE_ITERS), "DATASET.OUTPUT_PATH", out,
+                    "INFERENCE.OUTPUT_PATH", f"{out}/test", "MONITOR.TENSORBOARD", "False",
+                    "MONITOR.ITERATION_NUM", "[1, 200]"]
+            holder = {}
+
+            def train(yamls=yamls, opts=opts):
+                holder["t"] = main_torch.main(yamls + ["--opts", *opts])
+                lines = [json.loads(l) for l in Path(out, "metrics.jsonl").read_text()
+                         .splitlines()]
+                return [r["eval"] for r in lines if "eval" in r]
+
+            counted(f"(c) main_torch.py, {dt} train split, {FIXTURE_ITERS} iterations "
+                    "+ a validation", train, metrics, False)
+            k1, k2, k3, k4 = runs[-1]
+            fwd = holder["t"].evaluator.forwards
+            if [k1, k2, k3, k4] != [6 * (FIXTURE_ITERS + fwd), 6 * FIXTURE_ITERS, 10 * fwd, fwd]:
+                raise AssertionError(f"(c) {dt}: launch counts do not match the run")
+            saved = sorted(f for f in os.listdir(out) if f.endswith(".pth.tar"))
+            if f"checkpoint_{FIXTURE_ITERS:06d}.pth.tar" not in saved:
+                raise AssertionError(f"(c) {dt}: checkpoints {saved}")
+    return runs
+
+
+# ------------------------------------------------ phase 15: legacy U-Nets
+# the four U-Nets at build_architecture's defaults (FILTERS [28, 36, 48, 64,
+# 80], ISOTROPY [F, F, F, T, T], residual blocks, elu, replicate, bn) on one
+# channel
+LEGACY_SHAPES = {"unet_3d": (2, 1, 8, 256, 256), "unet_plus_3d": (2, 1, 8, 256, 256),
+                 "unet_2d": (2, 1, 256, 256), "unet_plus_2d": (2, 1, 256, 256)}
+LEGACY_STEPS = 3               # timed steps after the first (compared) one
+# f32 on both sides, TF32 off; cuDNN's and the CPU's convolutions sum in
+# other orders, and BatchNorm's batch statistics and the Dice sums reduce over
+# ~1e6 voxels: the largest gap read on an H100 was 3.42e-6 (unet_plus_3d's
+# gradient norm, in two runs), so a switch to TF32 would show
+LEGACY_RTOL = 1e-5
+
+
+def legacy_criterion():
+    """Two terms for target 0: WeightedBCEWithLogitsLoss on the logits and
+    DiceLoss on their sigmoid."""
+    from pctrans_torch.losses.legacy import LegacyCriterion
+
+    return LegacyCriterion(["0"], [["WeightedBCEWithLogitsLoss", "DiceLoss"]],
+                           [["none", "sigmoid"]], [[1.0, 1.0]])
+
+
+def conv_gflop(model, x) -> float:
+    """GFLOP of the convolutions of one forward of ``model`` on ``x``: 2 x
+    each output element x its input channels per group x the kernel's
+    taps, from the shapes (a step's backward adds about twice that)."""
+    total = []
+
+    def count(m, inputs, out):
+        total.append(2.0 * out.numel() * m.weight[0].numel())
+
+    hooks = [m.register_forward_hook(count) for m in model.modules()
+             if isinstance(m, (torch.nn.Conv2d, torch.nn.Conv3d))]
+    try:
+        with torch.no_grad():
+            model(x)
+    finally:
+        for h in hooks:
+            h.remove()
+    return sum(total) / 1e9
+
+
+def legacy_step(model, opt, crit, x, target):
+    """Forward, the criterion, backward, the gradient's global norm, one
+    optimizer step; (loss, {term: value}, grad norm) before the update."""
+    opt.zero_grad(set_to_none=True)
+    loss, terms = crit(model(x), [target])
+    loss.backward()
+    norm = torch.linalg.vector_norm(torch.stack(
+        [p.grad.norm() for p in model.parameters() if p.grad is not None]))
+    opt.step()
+    return loss.detach(), {k: v.detach() for k, v in terms.items()}, norm
+
+
+def legacy_phase(dev, card) -> dict:
+    """Phase 15: each U-Net from ``build_architecture`` trains one f32 step
+    (forward, the two-term ``LegacyCriterion``, backward, AdamW) on the
+    card and on a CPU copy with the same weights and batch: the losses and
+    the gradient norm within ``LEGACY_RTOL``; then ``LEGACY_STEPS`` more on the
+    card, timed with CUDA events, the peak memory above what the card held
+    before the model came (earlier phases' leftovers, printed once after a
+    ``gc.collect()``), and the convolutions' GFLOP per step (three
+    forwards' worth) with the rate they imply.  No kernel of the repo runs
+    here: the TPU package has no Pallas kernel on this path."""
+    import copy
+    import gc
+
+    from pctrans_torch.config import get_cfg_defaults
+    from pctrans_torch.engine.solver import build_optimizer, build_solver_config
+    from pctrans_torch.models import build_architecture
+
+    crit = legacy_criterion()
+    out = {}
+    before_gc = torch.cuda.memory_allocated()
+    gc.collect()
+    print(f"phase 15 starts with {torch.cuda.memory_allocated() / 2 ** 30:.3f} GiB allocated "
+          f"on the card ({before_gc / 2 ** 30:.3f} before gc.collect())")
+    for arch, shape in LEGACY_SHAPES.items():
+        cfg = get_cfg_defaults()
+        cfg.MODEL.ARCHITECTURE = arch
+        cfg.MODEL.IN_PLANES = shape[1]
+        model = build_architecture(cfg, torch.Generator().manual_seed(SEED))
+        rng = np.random.RandomState(SEED)
+        x = torch.from_numpy(rng.randn(*shape).astype(np.float32))
+        target = torch.from_numpy((rng.rand(*shape) > 0.7).astype(np.float32))
+        solver = build_solver_config(cfg)
+        cpu_model = copy.deepcopy(model).train()
+        gflop = 3 * conv_gflop(copy.deepcopy(model).eval(), x)
+        t0 = time.perf_counter()
+        ref = legacy_step(cpu_model, build_optimizer(cpu_model, solver), crit, x, target)
+        cpu_s = time.perf_counter() - t0
+        del cpu_model
+        held = torch.cuda.memory_allocated()
+        model = model.to(dev).train()
+        opt = build_optimizer(model, solver)
+        xd, td = x.to(dev), target.to(dev)
+        torch.cuda.reset_peak_memory_stats()
+        first = legacy_step(model, opt, crit, xd, td)
+        errs = {k: abs(float(a) - float(b)) / abs(float(b)) for k, a, b in
+                [("loss", first[0], ref[0]), ("grad_norm", first[2], ref[2])]
+                + [(k, first[1][k], ref[1][k]) for k in ref[1]]}
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        for _ in range(LEGACY_STEPS):
+            last = legacy_step(model, opt, crit, xd, td)
+        end.record()
+        end.synchronize()
+        ms = start.elapsed_time(end) / LEGACY_STEPS
+        peak = (torch.cuda.max_memory_allocated() - held) / 2 ** 30
+        n_params = sum(p.numel() for p in model.parameters())
+        print(f"{arch} {list(shape)}, {n_params} parameters: loss {float(first[0]):.6f} "
+              f"(CPU {float(ref[0]):.6f}), grad norm {float(first[2]):.6f} (CPU "
+              f"{float(ref[2]):.6f}), rel diffs " + ", ".join(f"{k} {v:.2e}" for k, v in
+                                                            errs.items())
+              + f" (<= {LEGACY_RTOL}); {ms:.3f} ms per f32 step (CUDA events, {LEGACY_STEPS} "
+              f"steps; ~{gflop:.1f} GFLOP of convolutions per step, {gflop / ms:.2f} "
+              f"TFLOP/s), peak {peak:.3f} GiB above the start, loss after {LEGACY_STEPS + 1} steps "
+              f"{float(last[0]):.6f}; CPU step {cpu_s:.2f} s; on {card}")
+        if max(errs.values()) > LEGACY_RTOL or not math.isfinite(float(last[0])):
+            raise AssertionError(f"{arch}: the card's step is not the CPU's")
+        out[arch] = {"ms": ms, "peak_gib": peak, "conv_gflop": gflop, **errs}
+        del model, opt
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -2307,12 +2675,14 @@ def main() -> int:
     (k1_eval, k3, k4), k1_model, k5_model = slice_bf16(dev, card)
     k1_gate.update(k1_model)
     k5_gate.update(k5_model)
+    dtype_map_phase(dev, card)
     bbbc_eval = slice_bbbc(dev, card)
     (k1, k2, _), k2_model = train_bf16(dev, card)
     k2_gate.update(k2_model)
     sampled = train_sampled_modes(dev, card)
-    k5, phase8_train = entry_points(card)
-    bbbc_entry = entry_points_bbbc(card)
+    ckpts = tempfile.TemporaryDirectory(dir=REPO / "build")
+    k5, phase8_train = entry_points(card, Path(ckpts.name, "CVPPP"))
+    bbbc_entry = entry_points_bbbc(card, Path(ckpts.name, "BBBC"))
     settings_train, settings_eval = entry_points_settings(card)
     swin_eval, k1_swin, swin_train, k2_swin = swin_phase(dev, card)
     k1_gate.update({f"swin_{k}": v for k, v in k1_swin.items()})
@@ -2325,6 +2695,12 @@ def main() -> int:
     pipelined = pipeline_phase(dev, card)
     submission = submission_phase(dev, card)
     monitoring_phase(card)
+    fixture_runs = fixture_phase(card, Path(ckpts.name))
+    ckpts.cleanup()
+    legacy = legacy_phase(dev, card)
+    print(f"on-disk trees (phase 14) K1, K2, K3, K4: eval CVPPP, eval BBBC test, BBBC "
+          f"validation, train CVPPP, train BBBC {fixture_runs}; legacy U-Nets (phase 15) "
+          + json.dumps(legacy))
     print(f"new paths: distributed world 1 (phase 8's run) K5, K1, K2 {dist_run}; two gloo "
           f"ranks K1, K2 per rank {dist_ranks}; pipelined CVPPP eval K1, K3, K4 {pipelined}; "
           f"test_cvppp K1, K3, K4 {submission}")

@@ -18,7 +18,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from .fpn_decoder import MultiHeadAttention, TransformerEncoderLayerPostNorm
-from .layers import MLP, position_embedding_sine
+from .layers import MLP, LayerNorm, position_embedding_sine
 
 
 class TransformerDecoderLayerPostNorm(nn.Module):
@@ -28,12 +28,12 @@ class TransformerDecoderLayerPostNorm(nn.Module):
     def __init__(self, d_model: int, nheads: int, d_ffn: int):
         super().__init__()
         self.self_attn = MultiHeadAttention(d_model, nheads)
-        self.norm1 = nn.LayerNorm(d_model, eps=1e-5)
+        self.norm1 = LayerNorm(d_model)
         self.multihead_attn = MultiHeadAttention(d_model, nheads)
-        self.norm2 = nn.LayerNorm(d_model, eps=1e-5)
+        self.norm2 = LayerNorm(d_model)
         self.linear1 = nn.Linear(d_model, d_ffn)
         self.linear2 = nn.Linear(d_ffn, d_model)
-        self.norm3 = nn.LayerNorm(d_model, eps=1e-5)
+        self.norm3 = LayerNorm(d_model)
 
     def forward(self, tgt, query_pos, memory, pos):
         q = tgt + query_pos
@@ -68,8 +68,8 @@ class StandardTransformerDecoder(nn.Module):
         self.decoder_layer = nn.ModuleList(
             TransformerDecoderLayerPostNorm(hidden_dim, nheads, dim_feedforward)
             for _ in range(dec_layers))
-        self.decoder_norm = nn.LayerNorm(hidden_dim, eps=1e-5)
-        self.mask_embed = MLP(hidden_dim, hidden_dim, mask_dim, 3)
+        self.decoder_norm = LayerNorm(hidden_dim)
+        self.mask_embed = MLP(hidden_dim, hidden_dim, mask_dim, 3, fp32=False)
         if mask_classification:
             self.class_embed = nn.Linear(hidden_dim, num_classes + 1)
 

@@ -21,7 +21,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.resize import resize_nearest_torch
-from .layers import ConvNorm, position_embedding_sine
+from .layers import ConvNorm, LayerNorm, position_embedding_sine
 from .transformer_decoder import attention
 
 
@@ -50,10 +50,10 @@ class TransformerEncoderLayerPostNorm(nn.Module):
     def __init__(self, d_model: int, nheads: int, d_ffn: int):
         super().__init__()
         self.self_attn = MultiHeadAttention(d_model, nheads)
-        self.norm1 = nn.LayerNorm(d_model, eps=1e-5)
+        self.norm1 = LayerNorm(d_model)
         self.linear1 = nn.Linear(d_model, d_ffn)
         self.linear2 = nn.Linear(d_ffn, d_model)
-        self.norm2 = nn.LayerNorm(d_model, eps=1e-5)
+        self.norm2 = LayerNorm(d_model)
 
     def forward(self, src: torch.Tensor, pos: torch.Tensor) -> torch.Tensor:
         q = src + pos

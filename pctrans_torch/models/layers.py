@@ -16,6 +16,14 @@ from torch import nn
 from ..parallel import mesh
 
 
+def in_f32(fn, *xs: torch.Tensor):
+    """``fn(*xs)`` on f32 copies of ``xs`` with autocast off: a flax module
+    without a dtype promotes its input with its f32 parameters and computes
+    in f32 under the bf16 recipe too, on the CPU and the card alike."""
+    with torch.autocast(xs[0].device.type, enabled=False):
+        return fn(*(x.float() for x in xs))
+
+
 class FrozenBatchNorm(nn.Module):
     """BatchNorm with frozen statistics and affine (``layers.py:38-61``).
 
@@ -38,12 +46,15 @@ class FrozenBatchNorm(nn.Module):
 
 
 class BatchNorm(nn.BatchNorm2d):
-    """flax ``nn.BatchNorm(momentum=0.9, epsilon=1e-5)`` (``layers.py:73-79``).
+    """flax ``nn.BatchNorm(momentum=0.9, epsilon=1e-5)`` (``layers.py:73-79``)
+    over [N, C, *spatial] with 1 to 3 spatial dims.
 
     Train mode normalises with the batch statistics and updates the running
     ones with momentum 0.1 from the *biased* batch variance, as flax does
     (``nn.BatchNorm2d`` would use the unbiased one).  Eval mode uses the
-    running statistics.
+    running statistics.  Both compute in f32 with autocast off and return
+    f32, whatever the input's dtype: flax's BatchNorm carries no dtype, so
+    it promotes a bf16 input with its f32 scale.
 
     ``sync`` (SyncBN): under a process group of more than one rank the
     statistics are the global batch's, as JAX computes them over the
@@ -57,6 +68,10 @@ class BatchNorm(nn.BatchNorm2d):
         super().__init__(features, eps=1e-5, momentum=0.1)
         self.sync = sync
 
+    def _check_input_dim(self, x: torch.Tensor) -> None:
+        if not 3 <= x.dim() <= 5:
+            raise ValueError(f"BatchNorm: expected 3D-5D input, got {x.dim()}D")
+
     def _update_running(self, mean: torch.Tensor, var: torch.Tensor) -> None:
         with torch.no_grad():
             m = self.momentum
@@ -64,40 +79,80 @@ class BatchNorm(nn.BatchNorm2d):
             self.running_var.mul_(1.0 - m).add_(var.detach() * m)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        self._check_input_dim(x)
+        return in_f32(self._normalize, x)
+
+    def _normalize(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training:
-            return super().forward(x)
+            return F.batch_norm(x, self.running_mean, self.running_var,
+                                self.weight, self.bias, False, 0.0, self.eps)
         if self.sync and mesh.is_distributed():
             return self._synced(x)
+        dims = [0] + list(range(2, x.dim()))
         with torch.no_grad():
-            var, mean = torch.var_mean(x.float(), dim=(0, 2, 3), unbiased=False)
+            var, mean = torch.var_mean(x, dim=dims, unbiased=False)
         self._update_running(mean, var)
         return F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0,
                             self.eps)
 
     def _synced(self, x: torch.Tensor) -> torch.Tensor:
-        xf = x.float()
-        count = torch.full((1,), xf.numel() / xf.shape[1], dtype=torch.float32,
+        dims = [0] + list(range(2, x.dim()))
+        shape = (-1,) + (1,) * (x.dim() - 2)
+        count = torch.full((1,), x.numel() / x.shape[1], dtype=torch.float32,
                            device=x.device)
-        sums = mesh.all_reduce_sum(torch.cat([xf.sum((0, 2, 3)), count]))
+        sums = mesh.all_reduce_sum(torch.cat([x.sum(dims), count]))
         n = sums[-1]
         mean = sums[:-1] / n
-        centred = xf - mean[:, None, None]
-        var = mesh.all_reduce_sum((centred * centred).sum((0, 2, 3))) / n
+        centred = x - mean.view(shape)
+        var = mesh.all_reduce_sum((centred * centred).sum(dims)) / n
         self._update_running(mean, var)
-        y = centred * torch.rsqrt(var + self.eps)[:, None, None]
-        return (y * self.weight[:, None, None] + self.bias[:, None, None]).to(x.dtype)
+        y = centred * torch.rsqrt(var + self.eps).view(shape)
+        return y * self.weight.view(shape) + self.bias.view(shape)
+
+
+class GroupNorm(nn.GroupNorm):
+    """flax ``nn.GroupNorm(epsilon=1e-5)`` with flax's dtypes, whatever
+    autocast's op lists say (CPU autocast leaves ``group_norm`` in bf16,
+    CUDA autocast runs it in f32): statistics and affine in f32 with
+    autocast off; the output in the input's dtype with ``keep_dtype`` (a
+    flax norm given ``dtype=self.dtype``, fed the compute dtype), else f32
+    (a flax norm with no dtype promotes the input with its f32 scale)."""
+
+    def __init__(self, num_groups: int, features: int, eps: float = 1e-5,
+                 keep_dtype: bool = False, affine: bool = True):
+        super().__init__(num_groups, features, eps=eps, affine=affine)
+        self.keep_dtype = keep_dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = in_f32(super().forward, x)
+        return y.to(x.dtype) if self.keep_dtype else y
+
+
+class LayerNorm(nn.LayerNorm):
+    """flax ``nn.LayerNorm(epsilon=1e-5)`` with flax's dtypes, as
+    :class:`GroupNorm`: f32 statistics and affine; the input's dtype with
+    ``keep_dtype``, else f32."""
+
+    def __init__(self, features: int, eps: float = 1e-5, keep_dtype: bool = False):
+        super().__init__(features, eps=eps)
+        self.keep_dtype = keep_dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = in_f32(super().forward, x)
+        return y.to(x.dtype) if self.keep_dtype else y
 
 
 def get_norm(name: str, features: int) -> Optional[nn.Module]:
     """detectron2 ``get_norm`` mirror (``layers.py:64-86``): BN and SyncBN
     are :class:`BatchNorm` (eps 1e-5; SyncBN's statistics are the global
-    batch's across ranks), GN has 32 groups."""
+    batch's across ranks), GN has 32 groups; both give f32, as JAX's norms
+    without a dtype do.  FrozenBN keeps the activation dtype."""
     if not name:
         return None
     if name in ("BN", "SyncBN"):
         return BatchNorm(features, sync=name == "SyncBN")
     if name == "GN":
-        return nn.GroupNorm(32, features, eps=1e-5)
+        return GroupNorm(32, features)
     if name == "FrozenBN":
         return FrozenBatchNorm(features)
     raise ValueError(f"Unknown norm: {name}")
@@ -127,17 +182,37 @@ class ConvNorm(nn.Module):
         return F.relu(x) if self.relu else x
 
 
+class Conv2dF32(nn.Conv2d):
+    """A flax ``nn.Conv`` without a dtype (``sem_logits``,
+    ``transformer_decoder.py:260-261``): it promotes its input to f32 and
+    computes in f32 under the bf16 recipe too, so this runs with autocast
+    off on an f32 input."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return in_f32(super().forward, x)
+
+
 class MLP(nn.Module):
-    """ReLU MLP with a linear last layer (``layers.py:123-141``)."""
+    """ReLU MLP with a linear last layer (``layers.py:123-141``).
+
+    JAX's ``MLP`` carries ``dtype=float32`` unless given the compute dtype,
+    so its Dense layers cast their input to f32 and compute in f32 under the
+    bf16 recipe too: with ``fp32`` the forward runs with autocast off on an
+    f32 input and returns f32; without it (JAX's ``dtype=dtype``) it runs in
+    the ambient autocast dtype."""
 
     def __init__(self, in_dim: int, hidden_dim: int, output_dim: int,
-                 num_layers: int):
+                 num_layers: int, fp32: bool = True):
         super().__init__()
+        self.fp32 = fp32
         dims = [in_dim] + [hidden_dim] * (num_layers - 1) + [output_dim]
         self.layers = nn.ModuleList(
             nn.Linear(a, b) for a, b in zip(dims[:-1], dims[1:]))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return in_f32(self._layers, x) if self.fp32 else self._layers(x)
+
+    def _layers(self, x: torch.Tensor) -> torch.Tensor:
         for i, layer in enumerate(self.layers):
             x = layer(x)
             if i < len(self.layers) - 1:

@@ -27,13 +27,18 @@ predictor, chosen by the config's names as the JAX model does (``:171-263``):
 The DETR predictor gives ``pred_masks``, ``aux_masks``, ``pred_logits``,
 ``aux_logits`` and ``mask_features``.  With ``config.dtype == "bfloat16"``
 the forward runs under ``torch.autocast`` in bf16 (the JAX recipe's mixed
-precision); sampling locations, attention softmaxes and the render stay f32.
+precision): autocast puts the convolutions and projections in bf16, as
+JAX's ``dtype=bfloat16`` modules are; every other dtype of the ResNet +
+MSDeformAttn + PCTrans path is explicit in its module (the norms, the f32
+MLP heads and ``sem_logits``, sampling locations, attention softmaxes, the
+render), so CPU and CUDA autocast, whose op lists differ, run one dtype
+flow.  :func:`module_dtypes` maps it.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Any, Dict, Optional
+from typing import Any, Dict, List, Optional
 
 import torch
 from torch import nn
@@ -111,6 +116,40 @@ class PCTransModel(nn.Module):
                 out = self.predictor(multi_scale, mask_features, impl=impl)
         out["mask_features"] = mask_features.permute(0, 2, 3, 1).float()
         return out
+
+
+def _dtypes(out) -> List[str]:
+    if isinstance(out, torch.Tensor):
+        return [str(out.dtype).replace("torch.", "")] if out.is_floating_point() else []
+    if isinstance(out, dict):
+        return [d for k in sorted(out) for d in _dtypes(out[k])]
+    if isinstance(out, (list, tuple)):
+        return [d for o in out for d in _dtypes(o)]
+    return []
+
+
+def module_dtypes(model: nn.Module, *args, **kwargs) -> Dict[str, str]:
+    """Runs ``model(*args, **kwargs)`` without grad and maps every submodule
+    that ran to the dtypes of the floating tensors it returned (flattened in
+    order, dict keys sorted, joined by ``,``; the calls of a module called
+    more than once joined by ``|`` where they differ).  The dtype map does
+    not depend on the input's size, so a small image on the CPU and on the
+    card must give the same map."""
+    seen: Dict[str, List[str]] = {}
+    hooks = []
+    for name, m in model.named_modules():
+        def hook(mod, inputs, out, name=name):
+            sig = ",".join(_dtypes(out))
+            if sig and sig not in seen.setdefault(name, []):
+                seen[name].append(sig)
+        hooks.append(m.register_forward_hook(hook))
+    try:
+        with torch.no_grad():
+            model(*args, **kwargs)
+    finally:
+        for h in hooks:
+            h.remove()
+    return {name: "|".join(sigs) for name, sigs in seen.items()}
 
 
 def variance_scaling_(w: torch.Tensor, scale: float, mode: str,

@@ -7,6 +7,11 @@ FPN stage into the stride-4 mask features.  ``fpn_legacy_swap`` gives the
 published model's operands instead (``pixel_decoder.py:172-182``): the res2
 lateral resized down onto res3's grid and added there, so the mask features
 sit on the stride-8 grid.  Maps are NCHW.
+
+Dtypes are JAX's under the bf16 recipe on either device: ``input_gn`` and
+the encoder's LayerNorms give the compute dtype (their statistics f32); the
+FPN's adapter and layer are ``ConvNorm`` with GN or SyncBN, which give f32,
+so the mask features are f32.
 """
 
 from __future__ import annotations
@@ -21,7 +26,7 @@ from torch import nn
 
 from ..ops.msdeform import ms_deform_attn
 from ..ops.resize import resize_bilinear
-from .layers import ConvNorm, position_embedding_sine
+from .layers import ConvNorm, GroupNorm, LayerNorm, in_f32, position_embedding_sine
 
 
 def sampling_offset_bias(n_heads: int, n_levels: int, n_points: int) -> np.ndarray:
@@ -58,15 +63,17 @@ class MSDeformAttn(nn.Module):
         S = input_flatten.shape[1]
         M, L, P = self.n_heads, self.n_levels, self.n_points
         value = self.value_proj(input_flatten).reshape(B, S, M, C // M)
-        with torch.autocast(query.device.type, enabled=False):
-            q32 = query.float()
-            offsets = self.sampling_offsets(q32).reshape(B, Lq, M, L, P, 2)
-            attn = self.attention_weights(q32).reshape(B, Lq, M, L * P)
+
+        def sampling(q, ref):
+            offsets = self.sampling_offsets(q).reshape(B, Lq, M, L, P, 2)
+            attn = self.attention_weights(q).reshape(B, Lq, M, L * P)
             attn = attn.softmax(-1).reshape(B, Lq, M, L, P)
             normalizer = torch.tensor([[w, h] for (h, w) in spatial_shapes],
-                                      dtype=torch.float32, device=query.device)
-            locations = (reference_points[:, :, None, :, None, :].float()
-                         + offsets / normalizer[None, None, None, :, None, :])
+                                      dtype=torch.float32, device=q.device)
+            return (ref[:, :, None, :, None, :]
+                    + offsets / normalizer[None, None, None, :, None, :]), attn
+
+        locations, attn = in_f32(sampling, query, reference_points)
         out = ms_deform_attn(value, spatial_shapes, locations, attn, impl=impl)
         return self.output_proj(out)
 
@@ -76,10 +83,10 @@ class MSDeformAttnEncoderLayer(nn.Module):
                  n_points: int):
         super().__init__()
         self.self_attn = MSDeformAttn(d_model, n_levels, n_heads, n_points)
-        self.norm1 = nn.LayerNorm(d_model, eps=1e-5)
+        self.norm1 = LayerNorm(d_model, keep_dtype=True)
         self.linear1 = nn.Linear(d_model, d_ffn)
         self.linear2 = nn.Linear(d_ffn, d_model)
-        self.norm2 = nn.LayerNorm(d_model, eps=1e-5)
+        self.norm2 = LayerNorm(d_model, keep_dtype=True)
 
     def forward(self, src, pos, reference_points, spatial_shapes, impl=None):
         attn = self.self_attn(src + pos, reference_points, src, spatial_shapes,
@@ -123,7 +130,7 @@ class MSDeformAttnPixelDecoder(nn.Module):
         self.input_proj = nn.ModuleList(
             nn.Conv2d(in_channels[n], conv_dim, 1) for n in self.tif)
         self.input_gn = nn.ModuleList(
-            nn.GroupNorm(32, conv_dim, eps=1e-5) for _ in self.tif)
+            GroupNorm(32, conv_dim, keep_dtype=True) for _ in self.tif)
         self.level_embed = nn.Parameter(torch.empty(L, conv_dim))
         self.encoder_layer = nn.ModuleList(
             MSDeformAttnEncoderLayer(conv_dim, d_ffn, L, n_heads, n_points)
@@ -142,8 +149,8 @@ class MSDeformAttnPixelDecoder(nn.Module):
             y = self.input_gn[i](self.input_proj[i](x))
             srcs.append(y.flatten(2).transpose(1, 2))
             pe = position_embedding_sine(H, W, self.conv_dim // 2, x.device)
-            pos.append((pe.reshape(H * W, self.conv_dim) + self.level_embed[i])
-                       .to(y.dtype))
+            pos.append(pe.reshape(H * W, self.conv_dim).to(y.dtype)
+                       + self.level_embed[i].to(y.dtype))
             spatial_shapes.append((H, W))
         src = torch.cat(srcs, 1)
         pos_flat = torch.cat(pos, 0)[None].expand(src.shape[0], -1, -1)

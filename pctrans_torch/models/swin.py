@@ -29,6 +29,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..parallel import mesh
+from .layers import LayerNorm
 
 
 def window_partition(x: torch.Tensor, ws: int) -> torch.Tensor:
@@ -125,9 +126,9 @@ class SwinBlock(nn.Module):
                  qk_scale: Optional[float] = None, drop_path: float = 0.0):
         super().__init__()
         self.window_size, self.shift_size, self.drop_path = window_size, shift_size, drop_path
-        self.norm1 = nn.LayerNorm(dim, eps=1e-5)
+        self.norm1 = LayerNorm(dim)
         self.attn = WindowAttention(dim, window_size, num_heads, qkv_bias, qk_scale)
-        self.norm2 = nn.LayerNorm(dim, eps=1e-5)
+        self.norm2 = LayerNorm(dim)
         self.mlp_fc1 = nn.Linear(dim, int(dim * mlp_ratio))
         self.mlp_fc2 = nn.Linear(int(dim * mlp_ratio), dim)
         self._masks: Dict[tuple, torch.Tensor] = {}     # shift masks by grid
@@ -174,7 +175,7 @@ class PatchMerging(nn.Module):
 
     def __init__(self, dim: int):
         super().__init__()
-        self.norm = nn.LayerNorm(4 * dim, eps=1e-5)
+        self.norm = LayerNorm(4 * dim)
         self.reduction = nn.Linear(4 * dim, 2 * dim, bias=False)
 
     def forward(self, x: torch.Tensor, hw: Tuple[int, int]) -> torch.Tensor:
@@ -198,7 +199,7 @@ class SwinTransformer(nn.Module):
         super().__init__()
         self.patch_size = patch_size
         self.patch_embed = nn.Conv2d(3, embed_dim, patch_size, stride=patch_size)
-        self.patch_norm = nn.LayerNorm(embed_dim, eps=1e-5)
+        self.patch_norm = LayerNorm(embed_dim)
         dpr = np.linspace(0, drop_path_rate, sum(depths))
         dims = [embed_dim * 2 ** i for i in range(len(depths))]
         self.channels = {f"res{i + 2}": d for i, d in enumerate(dims)}
@@ -212,7 +213,7 @@ class SwinTransformer(nn.Module):
                 for b in range(depth))
             for i, (dim, heads, depth) in enumerate(zip(dims, num_heads, depths)))
         self.downsample = nn.ModuleList(PatchMerging(d) for d in dims[:-1])
-        self.out_norm = nn.ModuleList(nn.LayerNorm(d, eps=1e-5) for d in dims)
+        self.out_norm = nn.ModuleList(LayerNorm(d) for d in dims)
 
     def forward(self, images: torch.Tensor,
                 generator: Optional[torch.Generator] = None) -> Dict[str, torch.Tensor]:

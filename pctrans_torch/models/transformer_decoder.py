@@ -8,6 +8,15 @@ a CondInst dynamic 1x1-conv head (the K3 render in eval, its einsum twin
 in train mode) and, thresholded at sigmoid 0.5, mask the next layer's
 cross-attention.  Feature levels are visited
 round-robin.
+
+Dtypes follow the JAX modules' under the bf16 recipe, on the CPU and the
+card alike (``pctrans_tpu/models/transformer_decoder.py``): the attention,
+FFN and mask-head projections run in the compute dtype (autocast), their
+residual input cast to it first (``tgt.astype(dt)``); the LayerNorms carry
+no dtype there, so the query stream between layers is f32; the four MLP
+heads (``ref_point_head``, ``query_scale``, ``point_embed``,
+``controller``) and ``sem_logits`` run in f32, the seg head's norms give
+f32.
 """
 
 from __future__ import annotations
@@ -20,7 +29,7 @@ from torch import nn
 
 from ..ops.render import dynamic_mask_render, render_twin
 from ..ops.resize import resize_bilinear
-from .layers import (MLP, ConvNorm, gen_sineembed_for_position,
+from .layers import (MLP, Conv2dF32, ConvNorm, LayerNorm, gen_sineembed_for_position,
                      inverse_sigmoid, position_embedding_sine)
 
 NEG_INF = -1e9
@@ -52,14 +61,14 @@ class SelfAttentionLayer(nn.Module):
         for name in ("sa_qcontent_proj", "sa_qpos_proj", "sa_kcontent_proj",
                      "sa_kpos_proj", "sa_v_proj", "out_proj"):
             self.add_module(name, nn.Linear(d, d))
-        self.norm1 = nn.LayerNorm(d, eps=1e-5)
+        self.norm1 = LayerNorm(d)
 
     def forward(self, tgt, query_pos):
         q = self.sa_qcontent_proj(tgt) + self.sa_qpos_proj(query_pos)
         k = self.sa_kcontent_proj(tgt) + self.sa_kpos_proj(query_pos)
         v = self.sa_v_proj(tgt)
         out = self.out_proj(attention(q, k, v, self.nheads))
-        return self.norm1(tgt + out)
+        return self.norm1(tgt.to(out.dtype) + out)
 
 
 class CrossAttentionLayer(nn.Module):
@@ -74,7 +83,7 @@ class CrossAttentionLayer(nn.Module):
             self.add_module(name, nn.Linear(d, d))
         self.ca_qpos_proj = nn.Linear(d, d) if is_first else None
         self.ca_qpos_sine_proj = nn.Linear(2 * d * points_num, d)
-        self.norm2 = nn.LayerNorm(d, eps=1e-5)
+        self.norm2 = LayerNorm(d)
 
     def forward(self, tgt, memory, pos, query_pos, query_sine_embed, attn_bias):
         B, Q, d = tgt.shape
@@ -92,7 +101,7 @@ class CrossAttentionLayer(nn.Module):
         k = torch.cat([k.reshape(B, S, h, d // h), k_pos.reshape(B, S, h, d // h)],
                       3).reshape(B, S, 2 * d)
         out = self.out_proj(attention(q, k, v, h, bias=attn_bias))
-        return self.norm2(tgt + out)
+        return self.norm2(tgt.to(out.dtype) + out)
 
 
 class FFNLayer(nn.Module):
@@ -100,10 +109,11 @@ class FFNLayer(nn.Module):
         super().__init__()
         self.linear1 = nn.Linear(d, dim_feedforward)
         self.linear2 = nn.Linear(dim_feedforward, d)
-        self.norm = nn.LayerNorm(d, eps=1e-5)
+        self.norm = LayerNorm(d)
 
     def forward(self, tgt):
-        return self.norm(tgt + self.linear2(F.relu(self.linear1(tgt))))
+        y = self.linear2(F.relu(self.linear1(tgt)))
+        return self.norm(tgt.to(y.dtype) + y)
 
 
 class MultiScaleMaskedTransformerDecoder(nn.Module):
@@ -132,7 +142,7 @@ class MultiScaleMaskedTransformerDecoder(nn.Module):
             SelfAttentionLayer(d, nheads) for _ in range(dec_layers))
         self.ffn_layers = nn.ModuleList(
             FFNLayer(d, dim_feedforward) for _ in range(dec_layers))
-        self.decoder_norm = nn.LayerNorm(d, eps=1e-5)
+        self.decoder_norm = LayerNorm(d)
         self.ref_point_head = MLP(d, d, points_num * 2, 2)
         self.query_scale = MLP(d, d * 2, d * 2 * points_num, 2)
         self.point_embed = MLP(d, d, 2 * points_num, 3)
@@ -146,7 +156,7 @@ class MultiScaleMaskedTransformerDecoder(nn.Module):
             self.seg_head = nn.ModuleList([
                 ConvNorm(in_channels, d, 3, norm=sem_norm, relu=True, use_bias=False),
                 ConvNorm(d, d, 3, norm=sem_norm, relu=True, use_bias=False)])
-            self.sem_logits = nn.Conv2d(d, 1, 1)
+            self.sem_logits = Conv2dF32(d, 1, 1)
 
     def forward(self, x: Sequence[torch.Tensor], mask_features: torch.Tensor,
                 impl: Optional[str] = None) -> Dict:
@@ -172,7 +182,7 @@ class MultiScaleMaskedTransformerDecoder(nn.Module):
             y = mask_features
             for layer in self.seg_head:
                 y = layer(y)
-            sem_mask = self.sem_logits(y).permute(0, 2, 3, 1).float()
+            sem_mask = self.sem_logits(y).permute(0, 2, 3, 1)
         mask_feat = self.mask_head(mask_features)
 
         predictions_mask, outputs_coords = [], []

@@ -9,13 +9,18 @@ nested dicts of numpy arrays, ``{"params": ..., "frozen": ...,
   ``nn.Linear`` weights: ``query``/``key``/``value`` kernels
   ``[in, heads, head_dim]`` and their ``[heads, head_dim]`` biases, and
   ``out`` kernels ``[heads, head_dim, out]``, flattened over the heads;
-* conv kernels HWIO become OIHW;
+* conv kernels ``[k..., Cin, Cout]`` (HWIO, DHWIO) become ``[Cout, Cin, k...]``;
 * a Swin relative-position table that JAX sized to a clamped window
   (``(2w - 1)**2`` rows for a map of w < window tokens) fills the central
   offsets of the port's full-window table; the other offsets are 0;
 * LayerNorm / GroupNorm / BatchNorm ``scale`` becomes ``weight``;
 * the ``frozen`` collection fills the FrozenBatchNorm buffers;
 * ``batch_stats`` fill the BatchNorm running statistics.
+
+``load_flax_legacy_variables(model, variables)`` does the same for the legacy
+U-Nets (``pctrans_torch/models/legacy``), whose modules carry the flax
+names: a block's ``BatchNorm_i`` / ``GroupNorm_i`` is its ``norm{i}``,
+everything else keeps its flax name.
 
 Module names follow the flax tree with PyTorch containers
 (``cross3`` -> ``cross_layers.3``, ``Dense_1`` -> ``layers.1``,
@@ -112,8 +117,8 @@ def _to_torch(arr, leaf: str, module: str = "") -> torch.Tensor:
         return t.t().contiguous()
     if leaf == "bias" and t.ndim == 2:                 # [heads, head_dim]
         return t.reshape(-1)
-    if leaf == "kernel" and t.ndim == 4:
-        return t.permute(3, 2, 0, 1).contiguous()     # HWIO -> OIHW
+    if leaf == "kernel" and t.ndim in (4, 5):         # [k..., Cin, Cout]
+        return t.permute(t.ndim - 1, t.ndim - 2, *range(t.ndim - 2)).contiguous()
     if leaf == "kernel" and t.ndim == 2:
         return t.t().contiguous()                      # [in, out] -> [out, in]
     return t
@@ -132,15 +137,15 @@ def _full_window_table(t: torch.Tensor, shape) -> torch.Tensor:
     return out.reshape(shape)
 
 
-def load_flax_variables(model: nn.Module,
-                        variables: Mapping[str, Mapping]) -> None:
-    """Load flax variables (nested dicts of numpy arrays) into ``model``."""
+def _load(model: nn.Module, variables: Mapping[str, Mapping], key_of) -> None:
+    """Load flax variables into ``model``, naming each leaf's torch entry by
+    ``key_of(col, path)``; a leaf without an entry, an entry loaded twice or
+    left without a value, or a shape mismatch raises."""
     state = model.state_dict()
-    params = variables.get("params", {})
     new: Dict[str, torch.Tensor] = {}
     for col, tree in variables.items():
         for path, arr in _flatten(tree):
-            key = torch_key(col, path, params)
+            key = key_of(col, path)
             name = f"{col}/{'/'.join(path)}"
             if key not in state:
                 raise KeyError(f"flax {name} -> {key}: no such torch entry")
@@ -160,3 +165,28 @@ def load_flax_variables(model: nn.Module,
     for k, v in state.items():
         new.setdefault(k, v)
     model.load_state_dict(new, strict=True)
+
+
+def load_flax_variables(model: nn.Module,
+                        variables: Mapping[str, Mapping]) -> None:
+    """Load flax variables (nested dicts of numpy arrays) into ``model``."""
+    params = variables.get("params", {})
+    _load(model, variables, lambda col, path: torch_key(col, path, params))
+
+
+_LEGACY_NORM = re.compile(r"^(BatchNorm|GroupNorm)_(\d+)$")
+
+
+def legacy_torch_key(col: str, path: Tuple[str, ...]) -> str:
+    """Torch state-dict key of the flax leaf ``col/path`` of a legacy model."""
+    *mods, leaf = path
+    if col not in ("params", "batch_stats") or leaf not in _LEAF[col]:
+        raise KeyError(f"unknown legacy leaf {col}/{'/'.join(path)}")
+    return ".".join([_LEGACY_NORM.sub(r"norm\2", m) for m in mods] + [_LEAF[col][leaf]])
+
+
+def load_flax_legacy_variables(model: nn.Module,
+                               variables: Mapping[str, Mapping]) -> None:
+    """Load a legacy model's flax variables (``params`` and, with
+    BatchNorm, ``batch_stats``) into ``model``."""
+    _load(model, variables, legacy_torch_key)

@@ -22,6 +22,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch import nn
 
 from pctrans_tpu.config import CfgNode as JaxCfgNode
 from pctrans_tpu.config import get_cfg_defaults as jax_cfg_defaults
@@ -42,6 +43,7 @@ from pctrans_torch.engine.solver import parameter_groups
 from pctrans_torch.models import (BasePixelDecoder, PCTransModel, PerPixelBaselineHead,
                                   PerPixelBaselinePlusHead, StandardTransformerDecoder,
                                   TransformerEncoderPixelDecoder, build_architecture)
+from pctrans_torch.models.legacy import UNet
 from pctrans_torch.models.per_pixel import init_head
 from pctrans_torch.models.pixel_decoder import MSDeformAttnPixelDecoder
 from pctrans_torch.ops.resize import resize_bilinear
@@ -430,15 +432,18 @@ def test_detr_over_the_plain_fpn_raises():
                                  transformer_decoder_name="StandardTransformerDecoder"))
 
 
-@pytest.mark.parametrize("arch,error", [("MaskFormer", None), ("unet_3d", NotImplementedError),
-                                        ("deeplabv3b", NotImplementedError),
-                                        ("no_such_net", ValueError)])
-def test_build_architecture_dispatch(arch, error):
+# the ids are the cases' ids from before the U-Nets were ported
+@pytest.mark.parametrize("arch,expect", [
+    ("MaskFormer", PCTransModel), ("unet_3d", UNet), ("deeplabv3b", NotImplementedError),
+    ("no_such_net", ValueError)], ids=["MaskFormer-None", "unet_3d-NotImplementedError",
+                                       "deeplabv3b-NotImplementedError",
+                                       "no_such_net-ValueError"])
+def test_build_architecture_dispatch(arch, expect):
     cfg = get_cfg_defaults()
     cfg.MODEL.RESNETS.DEPTH = 14
     cfg.MODEL.ARCHITECTURE = arch
-    if error is None:
-        assert isinstance(build_architecture(cfg), PCTransModel)
+    if issubclass(expect, nn.Module):
+        assert isinstance(build_architecture(cfg), expect)
     else:
-        with pytest.raises(error, match="slice 6" if error is NotImplementedError else arch):
+        with pytest.raises(expect, match="slice 6b" if expect is NotImplementedError else arch):
             build_architecture(cfg)

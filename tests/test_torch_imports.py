@@ -23,7 +23,9 @@ FORBIDDEN = ("jax", "flax", "optax", "orbax", "triton", "yaml")
 # the dataset readers import these at their first read and the submission
 # writer h5py when it writes, never at import
 LAZY = ("PIL", "cv2", "h5py")
-SCRIPTS = [REPO / "scripts" / "main_torch.py", REPO / "scripts" / "eval_torch.py"]
+SCRIPTS = [REPO / "scripts" / "main_torch.py", REPO / "scripts" / "eval_torch.py",
+           REPO / "scripts" / "scan_dataset_torch.py",
+           REPO / "scripts" / "tools" / "compare_config_torch.py"]
 
 _IMPORT_ALL = f"""
 import importlib, pkgutil, sys
@@ -33,7 +35,8 @@ import pctrans_torch
 for m in pkgutil.walk_packages(pctrans_torch.__path__, "pctrans_torch."):
     importlib.import_module(m.name)
 sys.path.insert(0, {str(REPO / "scripts")!r})
-import main_torch, eval_torch
+sys.path.insert(0, {str(REPO / "scripts" / "tools")!r})
+import main_torch, eval_torch, scan_dataset_torch, compare_config_torch
 added = set(sys.modules) - before
 print(sum(m.startswith("pctrans_torch") for m in added),
       *sorted(m for m in added if m.split(".")[0] in {FORBIDDEN + LAZY!r}))
@@ -50,7 +53,7 @@ def test_importing_every_module_loads_no_jax_triton_yaml_or_image_library():
 
 
 def test_port_and_smoke_import_nothing_of_the_jax_package():
-    """Neither chip_smoke.py, the port's two scripts nor any port module
+    """Neither chip_smoke.py, the port's scripts nor any port module
     names JAX, Triton, YAML or the JAX package ``pctrans_tpu`` in an import,
     at module level or inside a function (the card's machine has no JAX and
     no PyYAML), nor PIL, cv2 or h5py at module level."""
