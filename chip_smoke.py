@@ -2,7 +2,7 @@
 paths, of the alternative components (Swin-T, the FPN decoders, the DETR
 predictor, the stride-8 FPN swap), of multi-process training, the label
 pipeline, the CVPPP submission, the monitor's profiler window, the on-disk
-dataset readers and the legacy U-Nets.
+dataset readers, the legacy model zoo and the volume data.
 
     python3 chip_smoke.py        # one CUDA card; exits non-zero on any failure
 
@@ -130,9 +130,28 @@ Phases:
   15. the legacy U-Nets from ``build_architecture`` at its defaults:
      ``unet_3d`` and ``unet_plus_3d`` on [2, 1, 8, 256, 256], ``unet_2d``
      and ``unet_plus_2d`` on [2, 1, 256, 256], one f32 step each (the
-     two-term ``LegacyCriterion``, backward, AdamW) on the card against a
-     CPU copy (losses and gradient norm within rel 1e-3), then ms per step
+     two-term ``LegacyCriterion``, backward, AdamW) in f32 on the card
+     against an f64 CPU copy (losses and gradient norm within rel 1e-5),
+     then ms per step
      (CUDA events) and peak GiB; no kernel of the repo runs there;
+  16. the rest of the legacy zoo from ``build_architecture`` at its
+     defaults with three output channels: ``fpn_3d`` over the resnet,
+     repvgg, botnet and efficientnet backbones and ``unet_residual_3d`` on
+     [2, 1, 8, 256, 256], ``deeplabv3a`` (with ``AUX_OUT``), ``v3b`` and
+     ``v3c`` (ResNet-50 dilated to stride 8) on [2, 1, 256, 256]: one f32
+     step each (the two-term affinity ``LegacyCriterion``) in f32 on the
+     card against an f64 CPU copy within 1e-5 (DeepLab's gradient norm
+     within 5e-4), ms per step, peak GiB and conv GFLOP; the repvgg FPN3D
+     converted to deploy, its eval forward within 1e-5 of the train-mode
+     model's; ``Discriminator3D`` on ``unet_residual_3d``'s output, one
+     ``GANLoss`` step, f32 card against f64 CPU;
+  17. an SNEMI3D-sized volume (100 x 1024 x 1024, 400 ids; image a u8 PNG
+     stack through cv2, labels a u16 multi-page TIFF through PIL) read by
+     ``get_dataset`` with DATA_TYPE volume, the default augmentor and
+     3-channel affinity targets: samples/s over 32 draws, two draws from
+     one seed equal, a seeded sample's checksum beside the one recorded
+     under cv2 5.0 (printed, not gated), one ``fpn_3d`` step on two samples,
+     the val grid, and a ``TileDataset`` over a two-tile JSON layout;
   then one JSON line of kernel results (each with its bound on the card
   and, where one PyTorch call computes the same function, that call's
   time), the card line and the final status line.
@@ -2518,19 +2537,18 @@ def fixture_phase(card, ckpts: Path):
 LEGACY_SHAPES = {"unet_3d": (2, 1, 8, 256, 256), "unet_plus_3d": (2, 1, 8, 256, 256),
                  "unet_2d": (2, 1, 256, 256), "unet_plus_2d": (2, 1, 256, 256)}
 LEGACY_STEPS = 3               # timed steps after the first (compared) one
-# f32 on both sides, TF32 off; cuDNN's and the CPU's convolutions sum in
-# other orders, and BatchNorm's batch statistics and the Dice sums reduce over
-# ~1e6 voxels: the largest gap read on an H100 was 3.42e-6 (unet_plus_3d's
-# gradient norm, in two runs), so a switch to TF32 would show
+# the card's f32 step (TF32 off) against the CPU's f64 step; BatchNorm's
+# batch statistics and the Dice sums reduce over ~1e6 voxels in f32
 LEGACY_RTOL = 1e-5
 
 
-def legacy_criterion():
-    """Two terms for target 0: WeightedBCEWithLogitsLoss on the logits and
-    DiceLoss on their sigmoid."""
+def legacy_criterion(target: str = "0"):
+    """Two terms for ``target`` ("0" binary, one channel; "2" affinity,
+    three): WeightedBCEWithLogitsLoss on the logits and DiceLoss on their
+    sigmoid."""
     from pctrans_torch.losses.legacy import LegacyCriterion
 
-    return LegacyCriterion(["0"], [["WeightedBCEWithLogitsLoss", "DiceLoss"]],
+    return LegacyCriterion([target], [["WeightedBCEWithLogitsLoss", "DiceLoss"]],
                            [["none", "sigmoid"]], [[1.0, 1.0]])
 
 
@@ -2554,33 +2572,108 @@ def conv_gflop(model, x) -> float:
     return sum(total) / 1e9
 
 
-def legacy_step(model, opt, crit, x, target):
-    """Forward, the criterion, backward, the gradient's global norm, one
-    optimizer step; (loss, {term: value}, grad norm) before the update."""
+def grad_norm(model) -> torch.Tensor:
+    """The gradient's global norm, summed in f64: an f32 norm of a tensor of
+    millions of elements on the CPU can lie ~1e-4 from the exact one
+    (``pctrans_torch.models.legacy.step_precision`` prints both)."""
+    return torch.linalg.vector_norm(torch.stack(
+        [p.grad.double().norm() for p in model.parameters() if p.grad is not None]))
+
+
+def legacy_step(model, opt, crit, x, target, weights=None):
+    """Forward, the criterion (``weights``: its per-term weight maps),
+    backward, the gradient's global norm, one optimizer step; (loss,
+    {term: value}, grad norm) before the update."""
     opt.zero_grad(set_to_none=True)
-    loss, terms = crit(model(x), [target])
+    loss, terms = crit(model(x), [target], weights)
     loss.backward()
-    norm = torch.linalg.vector_norm(torch.stack(
-        [p.grad.norm() for p in model.parameters() if p.grad is not None]))
+    norm = grad_norm(model)
     opt.step()
     return loss.detach(), {k: v.detach() for k, v in terms.items()}, norm
+
+
+def gan_step(model, opt, fake, real):
+    """One discriminator step under ``GANLoss`` (lsgan): the mean of the
+    real and the fake terms; (loss, terms, grad norm) before the update."""
+    from pctrans_torch.losses.legacy import GANLoss
+
+    gan = GANLoss()
+    opt.zero_grad(set_to_none=True)
+    terms = {"real": gan(model(real), True), "fake": gan(model(fake), False)}
+    loss = 0.5 * (terms["real"] + terms["fake"])
+    loss.backward()
+    norm = grad_norm(model)
+    opt.step()
+    return loss.detach(), {k: v.detach() for k, v in terms.items()}, norm
+
+
+def card_vs_cpu(name, model, solver, step, inputs, dev, card, grad_rtol=LEGACY_RTOL,
+                n_steps=LEGACY_STEPS) -> dict:
+    """``step(model, optimizer, *inputs)`` once in f64 on a CPU copy of
+    ``model`` (the reference) and once in f32 on the card from the same
+    weights: the card's loss and each term within ``LEGACY_RTOL`` of the
+    reference, its gradient norm within ``grad_rtol``.  The model's own
+    f32 casts (its output, BotNet's softmax) stay in the f64 copy.  Then
+    ``n_steps`` more f32 steps of the same model on the card, timed with
+    CUDA events, the peak memory above what the card held before the model
+    came, and the convolutions' GFLOP per step (three forwards' worth,
+    counted on the card) with the rate they imply.  Returns the record;
+    the model stays on the card."""
+    import copy
+
+    from pctrans_torch.engine.solver import build_optimizer
+
+    cpu_model = copy.deepcopy(model).double().train()
+    t0 = time.perf_counter()
+    ref = step(cpu_model, build_optimizer(cpu_model, solver), *[t.double() for t in inputs])
+    cpu_s = time.perf_counter() - t0
+    del cpu_model
+    held = torch.cuda.memory_allocated()
+    model = model.to(dev).train()
+    opt = build_optimizer(model, solver)
+    on_card = [t.to(dev) for t in inputs]
+    gflop = 3 * conv_gflop(copy.deepcopy(model).eval(), on_card[0])
+    torch.cuda.reset_peak_memory_stats()
+    first = step(model, opt, *on_card)
+    errs = {k: abs(float(x) - float(y)) / abs(float(y)) for k, x, y in
+            [("loss", first[0], ref[0]), ("grad_norm", first[2], ref[2])]
+            + [(k, first[1][k], ref[1][k]) for k in ref[1]]}
+    start_ev, end_ev = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start_ev.record()
+    for _ in range(n_steps):
+        last = step(model, opt, *on_card)
+    end_ev.record()
+    end_ev.synchronize()
+    ms = start_ev.elapsed_time(end_ev) / n_steps
+    peak = (torch.cuda.max_memory_allocated() - held) / 2 ** 30
+    n_params = sum(p.numel() for p in model.parameters())
+    print(f"{name} {list(inputs[0].shape)}, {n_params} parameters: f32 loss on the card "
+          f"{float(first[0]):.6f} (f64 CPU {float(ref[0]):.6f}), grad norm "
+          f"{float(first[2]):.6f} (f64 CPU {float(ref[2]):.6f}), rel diffs "
+          + ", ".join(f"{k} {v:.2e}" for k, v in errs.items())
+          + f" (<= {LEGACY_RTOL}, grad_norm {grad_rtol}); {ms:.3f} ms per f32 step "
+          f"(CUDA events, {n_steps} steps; ~{gflop:.1f} GFLOP of convolutions per step, "
+          f"{gflop / ms:.2f} TFLOP/s), peak {peak:.3f} GiB above the start, loss after "
+          f"{n_steps + 1} steps {float(last[0]):.6f}; f64 CPU step {cpu_s:.2f} s; on {card}")
+    bounds = {k: grad_rtol if k == "grad_norm" else LEGACY_RTOL for k in errs}
+    if any(errs[k] > bounds[k] for k in errs) or not math.isfinite(float(last[0])):
+        raise AssertionError(f"{name}: the card's f32 step is not the CPU's f64 step")
+    return {"ms": ms, "peak_gib": peak, "conv_gflop": gflop, **errs}
 
 
 def legacy_phase(dev, card) -> dict:
     """Phase 15: each U-Net from ``build_architecture`` trains one f32 step
     (forward, the two-term ``LegacyCriterion``, backward, AdamW) on the
-    card and on a CPU copy with the same weights and batch: the losses and
-    the gradient norm within ``LEGACY_RTOL``; then ``LEGACY_STEPS`` more on the
-    card, timed with CUDA events, the peak memory above what the card held
-    before the model came (earlier phases' leftovers, printed once after a
-    ``gc.collect()``), and the convolutions' GFLOP per step (three
-    forwards' worth) with the rate they imply.  No kernel of the repo runs
-    here: the TPU package has no Pallas kernel on this path."""
-    import copy
+    card and in f64 on a CPU copy with the same weights and batch
+    (``card_vs_cpu``),
+    then ``LEGACY_STEPS`` more on the card; printed with the convolutions'
+    GFLOP per step (three forwards' worth) and the rate they imply.  No
+    kernel of the repo runs here: the TPU package has no Pallas kernel on
+    this path."""
     import gc
 
     from pctrans_torch.config import get_cfg_defaults
-    from pctrans_torch.engine.solver import build_optimizer, build_solver_config
+    from pctrans_torch.engine.solver import build_solver_config
     from pctrans_torch.models import build_architecture
 
     crit = legacy_criterion()
@@ -2597,43 +2690,225 @@ def legacy_phase(dev, card) -> dict:
         rng = np.random.RandomState(SEED)
         x = torch.from_numpy(rng.randn(*shape).astype(np.float32))
         target = torch.from_numpy((rng.rand(*shape) > 0.7).astype(np.float32))
-        solver = build_solver_config(cfg)
-        cpu_model = copy.deepcopy(model).train()
-        gflop = 3 * conv_gflop(copy.deepcopy(model).eval(), x)
+        out[arch] = card_vs_cpu(arch, model, build_solver_config(cfg),
+                                lambda m, o, x, t: legacy_step(m, o, crit, x, t),
+                                (x, target), dev, card)
+    return out
+
+
+# ------------------------------------------ phase 16: the rest of the legacy zoo
+ZOO_3D = (2, 1, 8, 256, 256)
+ZOO_2D = (2, 1, 256, 256)
+# (name, MODEL.ARCHITECTURE, the MODEL keys that pick the variant, input);
+# the rest at build_architecture's defaults (FILTERS [28, 36, 48, 64, 80],
+# BLOCKS [2, 2, 2, 2], ISOTROPY [F, F, F, T, T], elu, replicate, bn) with
+# three output channels, the affinity width of the EM recipes
+ZOO = [("fpn_3d resnet", "fpn_3d", {"BACKBONES": "resnet"}, ZOO_3D),
+       ("fpn_3d repvgg", "fpn_3d", {"BACKBONES": "repvgg"}, ZOO_3D),
+       ("fpn_3d botnet", "fpn_3d", {"BACKBONES": "botnet"}, ZOO_3D),
+       ("fpn_3d efficientnet", "fpn_3d", {"BACKBONES": "efficientnet"}, ZOO_3D),
+       ("unet_residual_3d", "unet_residual_3d", {}, ZOO_3D),
+       ("deeplabv3a + aux", "deeplabv3a", {"AUX_OUT": True}, ZOO_2D),
+       ("deeplabv3b", "deeplabv3b", {}, ZOO_2D),
+       ("deeplabv3c", "deeplabv3c", {}, ZOO_2D)]
+ZOO_OUT = 3
+# DeepLab's gradient norm at batch 2 against the CPU's f64 step: its f32
+# gradient is ill-conditioned (the parameter farthest from f64 on every
+# device is the backbone's last BatchNorm bias, 2e-4 to 8e-4), and cuDNN's
+# f32 kernels add to that.  Read on an H100 (``python3 -m
+# pctrans_torch.models.legacy.step_precision``): cuDNN 1.34e-4 to 1.82e-4,
+# PyTorch's im2col convolutions 1.7e-5 to 5.0e-5, the CPU's f32 step 2e-6
+# to 6.2e-5, TF32 3.0e-2 to 9.3e-2.  The loss and its terms keep LEGACY_RTOL.
+GRAD_RTOL = {"deeplabv3a": 5e-4, "deeplabv3b": 5e-4, "deeplabv3c": 5e-4}
+# the fused deploy conv against the three branches, both f32 on the card
+DEPLOY_RTOL = 1e-5
+
+
+def zoo_model(arch: str, keys: dict, shape):
+    """``build_architecture``'s model for ``arch`` at an input of ``shape``
+    (IN_PLANES and INPUT_SIZE from it), with seeded weights."""
+    from pctrans_torch.config import get_cfg_defaults
+    from pctrans_torch.models import build_architecture
+
+    cfg = get_cfg_defaults()
+    cfg.MODEL.ARCHITECTURE = arch
+    cfg.MODEL.IN_PLANES, cfg.MODEL.OUT_PLANES = shape[1], ZOO_OUT
+    cfg.MODEL.INPUT_SIZE = list(shape[2:])
+    for k, v in keys.items():
+        setattr(cfg.MODEL, k, v)
+    return build_architecture(cfg, torch.Generator().manual_seed(SEED))
+
+
+def zoo_phase(dev, card) -> dict:
+    """Phase 16: the rest of the zoo from ``build_architecture`` (``ZOO``):
+    one f32 step each (the two-term affinity ``LegacyCriterion``; DeepLab's
+    over its ``out`` and ``aux`` maps; gradient norms within ``GRAD_RTOL``)
+    on the card against an f64 CPU copy (``card_vs_cpu``) and ``LEGACY_STEPS``
+    timed; the repvgg FPN3D
+    converted to deploy (``repvgg_convert``), its eval forward on the card
+    against the train-mode model's eval forward; then ``Discriminator3D``
+    at its defaults on ``unet_residual_3d``'s output, one ``GANLoss`` step
+    card against CPU alike.  No kernel of the repo runs here."""
+    import gc
+
+    from pctrans_torch.config import get_cfg_defaults
+    from pctrans_torch.engine.solver import build_solver_config
+    from pctrans_torch.models.legacy import (Discriminator3D, init_legacy_weights,
+                                             repvgg_convert)
+
+    crit = legacy_criterion("2")
+    solver = build_solver_config(get_cfg_defaults())
+    out = {}
+    gc.collect()
+    for name, arch, keys, shape in ZOO:
+        model = zoo_model(arch, keys, shape)
+        rng = np.random.RandomState(SEED)
+        x = torch.from_numpy(rng.randn(*shape).astype(np.float32))
+        target = torch.from_numpy(
+            (rng.rand(shape[0], ZOO_OUT, *shape[2:]) > 0.7).astype(np.float32))
+        out[name] = card_vs_cpu(name, model, solver,
+                                lambda m, o, x, t: legacy_step(m, o, crit, x, t),
+                                (x, target), dev, card, GRAD_RTOL.get(arch, LEGACY_RTOL))
+        if arch == "unet_residual_3d":
+            with torch.no_grad():
+                fake = model.eval()(x.to(dev)).cpu()
+        if keys.get("BACKBONES") == "repvgg":
+            model.eval()
+            deploy = repvgg_convert(model)
+            with torch.no_grad():
+                xd = x.to(dev)
+                err = rel_fro(deploy(xd), model(xd))
+            print(f"{name} deploy (repvgg_convert) eval forward against the train-mode "
+                  f"model's: rel-Fro {err:.3e} (<= {DEPLOY_RTOL}); on {card}")
+            if not err <= DEPLOY_RTOL:
+                raise AssertionError(f"{name}: the deploy conversion is not the model")
+            out[name]["deploy_rel_fro"] = err
+            del deploy
+        del model
+    disc = Discriminator3D(in_channel=fake.shape[1])
+    init_legacy_weights(disc, torch.Generator().manual_seed(SEED))
+    real = torch.from_numpy(
+        (np.random.RandomState(SEED + 1).rand(*fake.shape) > 0.7).astype(np.float32))
+    out["Discriminator3D"] = card_vs_cpu(
+        "Discriminator3D (GANLoss lsgan) on unet_residual_3d's output", disc, solver,
+        gan_step, (fake, real), dev, card)
+    return out
+
+
+# ------------------------------------------ phase 17: volume data into a 3D model
+EM_SHAPE = (100, 1024, 1024)      # SNEMI3D's stack, the reference recipe's volume
+EM_IDS = 400                      # neurites in the volume
+EM_SAMPLE = [8, 256, 256]         # MODEL.INPUT_SIZE / OUTPUT_SIZE of the phase
+EM_DRAWS = 32
+
+
+def volume_phase(dev, card) -> dict:
+    """Phase 17: an SNEMI3D-sized volume (``EM_SHAPE``, ``EM_IDS`` ids)
+    written here (image PNG stack, labels multi-page TIFF) and read through
+    ``get_dataset(cfg, "train")`` with DATA_TYPE volume and the default
+    augmentor: samples/s over ``EM_DRAWS`` draws, each sample's shapes and
+    dtypes, two draws from one seed equal (else the phase fails), the
+    checksum of the seeded sample of ``fixtures.write_em_checksum_volume``
+    (printed beside the one the CPU test records under cv2 5.0, not gated:
+    the card's machine has another cv2);
+    one fpn_3d resnet f32 step on a batch of two samples on the card; then
+    ``mode="val"`` grid sampling and a ``TileDataset`` over a two-tile JSON
+    layout of the volume's first rows."""
+    import cv2
+
+    from pctrans_torch.config import load_cfg
+    from pctrans_torch.data import fixtures
+    from pctrans_torch.data.build import build_volume_dataset, get_dataset
+    from pctrans_torch.engine.solver import build_optimizer, build_solver_config
+
+    out = {}
+    (REPO / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=REPO / "build") as tmp:
+        root = Path(tmp)
         t0 = time.perf_counter()
-        ref = legacy_step(cpu_model, build_optimizer(cpu_model, solver), crit, x, target)
-        cpu_s = time.perf_counter() - t0
-        del cpu_model
-        held = torch.cuda.memory_allocated()
+        image, label = fixtures.em_volume(EM_SHAPE, SEED, EM_IDS)
+        t1 = time.perf_counter()
+        fixtures.write_em_volume(root, image, label)
+        t2 = time.perf_counter()
+        cfg = load_cfg(opts=fixtures.em_volume_opts(tmp, EM_SAMPLE))
+        ds = get_dataset(cfg, "train")
+        t3 = time.perf_counter()
+        n_ids = int(np.count_nonzero(np.bincount(label.ravel())[1:]))
+        print(f"phase 17: volume {list(EM_SHAPE)} with {n_ids} ids "
+              f"made in {t1 - t0:.2f} s, written in {t2 - t1:.2f} s (PNG stack, cv2 "
+              f"{cv2.__version__}; u16 TIFF, PIL), read by get_dataset in {t3 - t2:.2f} s: "
+              f"image {ds.volume[0].dtype} {list(ds.volume[0].shape)}, labels "
+              f"{ds.label[0].dtype} {list(ds.label[0].shape)}, crop "
+              f"{list(ds.aug_sample_size)} before the augmentor's centre crop")
+        if not (np.array_equal(ds.volume[0], image) and np.array_equal(ds.label[0], label)):
+            raise AssertionError("phase 17: the volume read back is not the one written")
+        del image
+        t0 = time.perf_counter()
+        samples = [ds.__getitem__(i, rng=np.random.RandomState(SEED + i))
+                   for i in range(EM_DRAWS)]
+        rate = EM_DRAWS / (time.perf_counter() - t0)
+        print(f"{EM_DRAWS} draws: {rate:.3f} samples/s (host, one thread); sample "
+              + ", ".join(f"{k} {v.dtype} {list(v.shape)}" for k, v in samples[0].items()))
+        again = ds.__getitem__(0, rng=np.random.RandomState(SEED))
+        same = all(np.array_equal(again[k], samples[0][k]) for k in samples[0])
+        print(f"two draws from seed {SEED} equal: {same}")
+        if not same:
+            raise AssertionError("phase 17: two draws from one seed differ")
+        opts = fixtures.write_em_checksum_volume(root / "checksum", SEED)
+        checksum = fixtures.sample_checksum(build_volume_dataset(
+            load_cfg(opts=opts), "train").__getitem__(0, rng=np.random.RandomState(SEED)))
+        recorded = fixtures.EM_CHECKSUM_CV2_5
+        print(f"checksum of the seeded augmented sample: {checksum} under cv2 "
+              f"{cv2.__version__}; under cv2 5.0.0 on the CPU: {recorded} "
+              f"({'match' if checksum == recorded else 'mismatch'}; not gated)")
+        out.update(samples_per_s=rate, checksum=checksum, checksum_match=checksum == recorded)
+
+        model = zoo_model("fpn_3d", {"BACKBONES": "resnet"}, (2, 1, *EM_SAMPLE))
         model = model.to(dev).train()
-        opt = build_optimizer(model, solver)
-        xd, td = x.to(dev), target.to(dev)
-        torch.cuda.reset_peak_memory_stats()
-        first = legacy_step(model, opt, crit, xd, td)
-        errs = {k: abs(float(a) - float(b)) / abs(float(b)) for k, a, b in
-                [("loss", first[0], ref[0]), ("grad_norm", first[2], ref[2])]
-                + [(k, first[1][k], ref[1][k]) for k in ref[1]]}
-        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-        start.record()
-        for _ in range(LEGACY_STEPS):
-            last = legacy_step(model, opt, crit, xd, td)
-        end.record()
-        end.synchronize()
-        ms = start.elapsed_time(end) / LEGACY_STEPS
-        peak = (torch.cuda.max_memory_allocated() - held) / 2 ** 30
-        n_params = sum(p.numel() for p in model.parameters())
-        print(f"{arch} {list(shape)}, {n_params} parameters: loss {float(first[0]):.6f} "
-              f"(CPU {float(ref[0]):.6f}), grad norm {float(first[2]):.6f} (CPU "
-              f"{float(ref[2]):.6f}), rel diffs " + ", ".join(f"{k} {v:.2e}" for k, v in
-                                                            errs.items())
-              + f" (<= {LEGACY_RTOL}); {ms:.3f} ms per f32 step (CUDA events, {LEGACY_STEPS} "
-              f"steps; ~{gflop:.1f} GFLOP of convolutions per step, {gflop / ms:.2f} "
-              f"TFLOP/s), peak {peak:.3f} GiB above the start, loss after {LEGACY_STEPS + 1} steps "
-              f"{float(last[0]):.6f}; CPU step {cpu_s:.2f} s; on {card}")
-        if max(errs.values()) > LEGACY_RTOL or not math.isfinite(float(last[0])):
-            raise AssertionError(f"{arch}: the card's step is not the CPU's")
-        out[arch] = {"ms": ms, "peak_gib": peak, "conv_gflop": gflop, **errs}
-        del model, opt
+        opt = build_optimizer(model, build_solver_config(cfg))
+        batch = {k: torch.from_numpy(np.stack([s[k] for s in samples[:2]])).to(dev)
+                 for k in samples[0]}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        # WEIGHT_OPT [["1"]]: the binary-ratio weights on the first term
+        loss, terms, norm = legacy_step(model, opt, legacy_criterion("2"), batch["image"],
+                                        batch["target_0"], [[batch["weight_0_0"], None]])
+        torch.cuda.synchronize()
+        step_ms = 1e3 * (time.perf_counter() - t0)
+        print(f"fpn_3d resnet on a batch of two samples: loss {float(loss):.6f} ("
+              + ", ".join(f"{k} {float(v):.6f}" for k, v in terms.items())
+              + f"), grad norm {float(norm):.6f}, one f32 step {step_ms:.1f} ms (host "
+              f"clock, the first); on {card}")
+        if not (math.isfinite(float(loss)) and math.isfinite(float(norm))):
+            raise AssertionError("phase 17: the step is not finite")
+        out["step_ms"] = step_ms
+        del model, opt, batch, samples
+
+        val = get_dataset(cfg, "val")
+        items = [val[0], val[len(val) - 1]]
+        print(f"val grid: {len(val)} windows of {EM_SAMPLE}; first pos "
+              f"{items[0]['pos'].tolist()}, last {items[1]['pos'].tolist()}, image "
+              f"{items[1]['image'].dtype} {list(items[1]['image'].shape)}")
+        if len(val) < 2 or any(it["image"].shape != (1, *EM_SAMPLE) for it in items):
+            raise AssertionError("phase 17: the val grid")
+
+        tile = EM_SHAPE[1] // 2
+        names = fixtures.write_em_tiles(root, ds.volume[0], ds.label[0], tile)
+        tcfg = load_cfg(opts=fixtures.em_volume_opts(tmp, EM_SAMPLE) + [
+            "DATASET.DO_CHUNK_TITLE", "1", "DATASET.IMAGE_NAME", names["im"],
+            "DATASET.LABEL_NAME", names["seg"], "DATASET.DATA_CHUNK_NUM", "[1, 1, 2]",
+            "DATASET.DATA_CHUNK_STRIDE", "False"])
+        tiles = get_dataset(tcfg, "train")
+        for _ in range(len(tiles)):
+            tiles.updatechunk()
+            inner = tiles.dataset
+            it = inner.__getitem__(0, rng=np.random.RandomState(SEED))
+            print(f"TileDataset chunk {tiles.get_coord_name()}: volume "
+                  f"{list(inner.volume[0].shape)}, sample " + ", ".join(
+                      f"{k} {list(v.shape)}" for k, v in it.items()))
+            if it["target_0"].shape != (3, *EM_SAMPLE):
+                raise AssertionError("phase 17: the tile dataset's sample")
+        out["tile_chunks"] = len(tiles)
     return out
 
 
@@ -2698,6 +2973,13 @@ def main() -> int:
     fixture_runs = fixture_phase(card, Path(ckpts.name))
     ckpts.cleanup()
     legacy = legacy_phase(dev, card)
+    t0 = time.perf_counter()
+    zoo = zoo_phase(dev, card)
+    t1 = time.perf_counter()
+    volume = volume_phase(dev, card)
+    print(f"phase 16 took {t1 - t0:.1f} s, phase 17 {time.perf_counter() - t1:.1f} s; "
+          f"the rest of the zoo (phase 16) {json.dumps(zoo)}; volume data (phase 17) "
+          f"{json.dumps(volume)}")
     print(f"on-disk trees (phase 14) K1, K2, K3, K4: eval CVPPP, eval BBBC test, BBBC "
           f"validation, train CVPPP, train BBBC {fixture_runs}; legacy U-Nets (phase 15) "
           + json.dumps(legacy))

@@ -9,6 +9,10 @@ so batches are the JAX loader's, bit for bit, whatever the thread
 scheduling.  Eval loaders pad a ragged last batch by repeating its last item
 and carry ``_num_valid``; consumers score only the first ``_num_valid`` rows.
 
+``DATA_TYPE`` ``volume`` / ``tile`` give the legacy EM datasets
+(:func:`build_volume_dataset`), which the legacy models train on; their
+trainer is not ported yet (ROADMAP slice 6d).
+
 Multi-card training (one process per card): each process takes a
 disjoint stride of every epoch's permutation (``process_index`` of
 ``process_count``) and a batch of SOLVER.SAMPLES_PER_BATCH, its rows of the
@@ -19,6 +23,7 @@ from __future__ import annotations
 
 import inspect
 import logging
+import os
 import queue
 import threading
 from concurrent.futures import ThreadPoolExecutor
@@ -30,12 +35,6 @@ from .bbbc import BBBC
 from .cvppp import CVPPP
 from .instance_folder import CellposeDataset, MoNuSegDataset
 from .synthetic import SyntheticDataset, nuclei_scene_rule
-
-_NOT_PORTED = {
-    "volume": "ROADMAP item 26 (the legacy EM zoo)",
-    "tile": "ROADMAP item 26 (the legacy EM zoo)",
-}
-
 
 def get_dataset(cfg, mode: str):
     dt = cfg.DATASET.DATA_TYPE
@@ -57,10 +56,72 @@ def get_dataset(cfg, mode: str):
     if dt in ("cellpose", "monuseg"):
         cls = CellposeDataset if dt == "cellpose" else MoNuSegDataset
         return cls(cfg.DATASET.INPUT_PATH, mode, crop_size=cfg.MODEL.INPUT_SIZE[-1])
-    if dt in _NOT_PORTED:
-        raise NotImplementedError(f"DATASET.DATA_TYPE {dt!r}: not ported yet, "
-                                  f"{_NOT_PORTED[dt]}")
+    if dt in ("volume", "tile"):
+        return build_volume_dataset(cfg, mode)
     raise ValueError(f"Unknown DATASET.DATA_TYPE: {dt}")
+
+
+def build_volume_dataset(cfg, mode: str):
+    """The legacy EM path (``pctrans_tpu/data/build.py:71-131``): a
+    :class:`VolumeDataset` over the volumes IMAGE_NAME / LABEL_NAME /
+    VALID_MASK_NAME name, or with DATASET.DO_CHUNK_TITLE 1 a
+    :class:`TileDataset` over their JSON tile layouts; the EM augmentor in
+    train mode."""
+    from .volume_augment import build_train_augmentor
+    from .volume_dataset import TileDataset, VolumeDataset, load_volume_inputs
+
+    augmentor = build_train_augmentor(cfg) if mode == "train" else None
+    sample_size = list(cfg.MODEL.INPUT_SIZE)
+    if len(sample_size) == 2:
+        sample_size = [1] + sample_size
+    label_size = list(cfg.MODEL.OUTPUT_SIZE or [])
+    if len(label_size) == 2:
+        label_size = [1] + label_size
+    if not label_size or tuple(label_size) == tuple(sample_size):
+        label_size = None  # same-size nets: labels match the input crop
+    if mode == "train":
+        stride = (1, 1, 1)
+        iter_num = cfg.SOLVER.ITERATION_TOTAL * cfg.SOLVER.SAMPLES_PER_BATCH
+    elif mode == "val":
+        stride = [max(1, s // 2) for s in sample_size]
+        iter_num = -1
+    else:
+        stride = cfg.INFERENCE.STRIDE
+        iter_num = -1
+    rj = cfg.DATASET.REJECT_SAMPLING
+    shared = dict(
+        mode=mode, sample_volume_size=sample_size, sample_stride=stride,
+        sample_label_size=label_size,
+        augmentor=augmentor, target_opt=cfg.MODEL.TARGET_OPT,
+        weight_opt=cfg.MODEL.WEIGHT_OPT,
+        reject_size_thres=rj.SIZE_THRES, reject_diversity=rj.DIVERSITY,
+        reject_p=rj.P, data_mean=cfg.DATASET.MEAN, data_std=cfg.DATASET.STD,
+        do_relabel=cfg.DATASET.REDUCE_LABEL, do_2d=cfg.DATASET.DO_2D,
+        erosion_rates=cfg.MODEL.LABEL_EROSION or None,
+        dilation_rates=cfg.MODEL.LABEL_DILATION or None,
+    )
+    if cfg.DATASET.DO_CHUNK_TITLE == 1:
+        root = cfg.DATASET.INPUT_PATH
+
+        def _paths(name):
+            if not name:
+                return None
+            names = name if isinstance(name, (list, tuple)) else [name]
+            return [os.path.join(root, n) for n in names]
+
+        return TileDataset(
+            volume_json=_paths(cfg.DATASET.IMAGE_NAME),
+            label_json=_paths(cfg.DATASET.LABEL_NAME) if mode == "train" else None,
+            valid_mask_json=(_paths(cfg.DATASET.VALID_MASK_NAME)
+                             if mode == "train" else None),
+            chunk_num=cfg.DATASET.DATA_CHUNK_NUM,
+            chunk_ind=cfg.DATASET.DATA_CHUNK_IND,
+            chunk_ind_split=cfg.DATASET.CHUNK_IND_SPLIT,
+            chunk_iter=cfg.DATASET.DATA_CHUNK_ITER,
+            chunk_stride=cfg.DATASET.DATA_CHUNK_STRIDE,
+            pad_size=cfg.DATASET.PAD_SIZE, **shared)
+    img, lab, vm = load_volume_inputs(cfg, mode)
+    return VolumeDataset(img, lab, vm, iter_num=iter_num, **shared)
 
 
 def batch_size_for(cfg, mode: str, n_devices: int = 1) -> int:

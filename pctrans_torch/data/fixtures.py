@@ -20,6 +20,15 @@ CVPPP A1 layout (reference connectomics/data/dataset/dataset_CVPPP.py:
 
 The loader sorts by ``int(name[5:8])`` so plant ids are always 3 digits.
 
+EM volume layout (the port's own, for ``DATASET.DATA_TYPE volume`` / ``tile``;
+the JAX package has no writer for it):
+
+    <root>/im/0000.png ...                u8 image stack, one PNG per section
+    <root>/seg.tif                        u16 instance labels, one multi-page
+                                          TIFF (a PNG stack reads back as u8)
+    <root>/{im,seg}_tiles/0000/0_0.png    two tiles per section, and their
+    <root>/{im,seg}.json                  JSON layouts (``create_json`` keys)
+
 BBBC039 layout (reference dataset_BBBC.py:82-105):
 
     <root>/images/<name>.tif              uint16 single-channel (IXM
@@ -33,7 +42,10 @@ BBBC039 layout (reference dataset_BBBC.py:82-105):
 
 from __future__ import annotations
 
+import hashlib
+import json
 import os
+from pathlib import Path
 from typing import List, Tuple
 
 import numpy as np
@@ -131,3 +143,109 @@ def write_bbbc_fixture(root: str, n_train: int = 2, n_val: int = 1,
             f.writelines(n + ".png\n" for n in names)
         out[split] = names
     return out
+
+
+# --------------------------------------------------------------- EM volumes
+# the seeded augmented sample whose sha256 ``chip_smoke.py`` phase 17 prints:
+# a volume the augmentor's crop fits, windows of EM_SAMPLE, drawn with
+# RandomState(0); the sha256 under cv2 5.0.0 on the CPU
+EM_SAMPLE = [8, 256, 256]
+EM_CHECKSUM_SHAPE = (12, 384, 384)
+EM_CHECKSUM_CV2_5 = "1c809e9849ba66b984528e1b01e0b13c950c0b503c5c129b8c554e231d227d64"
+
+
+def em_volume(shape, seed: int, n_ids: int = 400):
+    """A seeded EM-like volume: u16 instance labels, ``n_ids`` neurites each
+    the cell of one seed in every section's Voronoi diagram (at a quarter of
+    the resolution, the seeds drifting across z), and a u8 image: bright
+    cells, dark membranes on the labels' boundaries, noise."""
+    from scipy import ndimage
+
+    rng = np.random.RandomState(seed)
+    d, h, w = shape
+    hq, wq = -(-h // 4), -(-w // 4)
+    pos = rng.rand(n_ids, 2) * (hq, wq)
+    drift = 0.5 * rng.randn(n_ids, 2)
+    label = np.empty(shape, np.uint16)
+    for z in range(d):
+        p = np.clip(pos + drift * z, 0, (hq - 1, wq - 1)).astype(np.int64)
+        seeds = np.zeros((hq, wq), np.int32)
+        seeds[p[:, 0], p[:, 1]] = np.arange(1, n_ids + 1)
+        _, (iy, ix) = ndimage.distance_transform_edt(seeds == 0, return_indices=True)
+        label[z] = np.repeat(np.repeat(seeds[iy, ix], 4, 0), 4, 1)[:h, :w]
+    edge = np.zeros(shape, bool)
+    edge[:, 1:] |= label[:, 1:] != label[:, :-1]
+    edge[:, :, 1:] |= label[:, :, 1:] != label[:, :, :-1]
+    image = np.where(edge, 60.0, 190.0) + 20.0 * rng.randn(*shape)
+    return np.clip(image, 0, 255).astype(np.uint8), label
+
+
+def write_em_volume(root, image, label) -> None:
+    """The image as a u8 PNG stack through cv2 (``im/0000.png``...), the
+    labels as one u16 multi-page TIFF through PIL (``seg.tif``)."""
+    import cv2
+    from PIL import Image
+
+    root = Path(root)
+    (root / "im").mkdir(parents=True)
+    for z in range(image.shape[0]):
+        cv2.imwrite(str(root / "im" / f"{z:04d}.png"), image[z])
+    pages = [Image.fromarray(s) for s in label]
+    pages[0].save(root / "seg.tif", save_all=True, append_images=pages[1:])
+
+
+def write_em_tiles(root, image, label, tile: int) -> dict:
+    """The first ``tile`` rows of the volume as two ``tile`` x ``tile`` tiles
+    per section (u8 image, u16 labels, PNG through cv2) and their JSON
+    layouts (``data/volume_io.py``'s ``create_json`` keys); {"im", "seg"}:
+    the layouts' file names under ``root``."""
+    import cv2
+
+    root = Path(root)
+    names = {}
+    for kind, vol, dtype in (("im", image, "uint8"), ("seg", label, "uint16")):
+        patterns = []
+        for z in range(vol.shape[0]):
+            d = root / f"{kind}_tiles" / f"{z:04d}"
+            d.mkdir(parents=True)
+            for c in range(2):
+                cv2.imwrite(str(d / f"0_{c}.png"), vol[z, :tile, c * tile:(c + 1) * tile])
+            patterns.append(str(d) + "/{row}_{column}.png")
+        meta = {"ndim": 1, "dtype": dtype, "image": patterns, "depth": vol.shape[0],
+                "height": tile, "width": 2 * tile, "n_columns": 2, "n_rows": 1,
+                "tile_size": tile, "tile_ratio": 1, "tile_st": [0, 0]}
+        (root / f"{kind}.json").write_text(json.dumps(meta))
+        names[kind] = f"{kind}.json"
+    return names
+
+
+def em_volume_opts(root, sample=EM_SAMPLE) -> List[str]:
+    """Config opts over ``write_em_volume``'s layout under ``root``: DATA_TYPE
+    volume, DO_2D False, INPUT_SIZE = OUTPUT_SIZE ``sample``, TARGET_OPT
+    ["2"] (3-channel affinity) with WEIGHT_OPT [["1"]], the default
+    augmentor."""
+    return ["DATASET.DATA_TYPE", "volume", "DATASET.INPUT_PATH", f"{root}/",
+            "DATASET.IMAGE_NAME", "im/*.png", "DATASET.LABEL_NAME", "seg.tif",
+            "DATASET.DO_2D", "False", "MODEL.INPUT_SIZE", str(list(sample)),
+            "MODEL.OUTPUT_SIZE", str(list(sample)), "MODEL.TARGET_OPT", "['2']",
+            "MODEL.WEIGHT_OPT", "[['1']]"]
+
+
+def write_em_checksum_volume(root, seed: int = 0) -> List[str]:
+    """Writes the checksum sample's volume (``EM_CHECKSUM_SHAPE``, 40 ids)
+    under ``root`` unless it is there; its config opts (``em_volume_opts``).
+    The sample is ``build_volume_dataset(load_cfg(opts=...), "train")
+    .__getitem__(0, rng=np.random.RandomState(seed))``."""
+    if not (Path(root) / "seg.tif").exists():
+        write_em_volume(root, *em_volume(EM_CHECKSUM_SHAPE, seed, n_ids=40))
+    return em_volume_opts(root)
+
+
+def sample_checksum(sample: dict) -> str:
+    """sha256 of a sample's arrays (sorted keys; dtype, shape and bytes)."""
+    h = hashlib.sha256()
+    for k in sorted(sample):
+        a = np.ascontiguousarray(sample[k])
+        h.update(f"{k}{a.dtype}{a.shape}".encode())
+        h.update(a.tobytes())
+    return h.hexdigest()

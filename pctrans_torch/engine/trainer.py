@@ -96,6 +96,10 @@ def resolve_device(device=None) -> torch.device:
 class Trainer:
     def __init__(self, cfg: CfgNode, mode: str = "train",
                  checkpoint: Optional[str] = None, device=None):
+        if cfg.DATASET.DATA_TYPE in ("volume", "tile"):
+            raise NotImplementedError(
+                f"Trainer: DATASET.DATA_TYPE {cfg.DATASET.DATA_TYPE!r} feeds the legacy "
+                "models, whose trainer is not ported yet (ROADMAP slice 6d, item 26c)")
         self.cfg = cfg
         self.device = resolve_device(device)
         self.rank, self.world = mesh.rank(), mesh.world_size()

@@ -19,9 +19,10 @@ from ..parallel import mesh
 def in_f32(fn, *xs: torch.Tensor):
     """``fn(*xs)`` on f32 copies of ``xs`` with autocast off: a flax module
     without a dtype promotes its input with its f32 parameters and computes
-    in f32 under the bf16 recipe too, on the CPU and the card alike."""
+    in f32 under the bf16 recipe too, on the CPU and the card alike (an f64
+    input, in an f64 model, stays f64)."""
     with torch.autocast(xs[0].device.type, enabled=False):
-        return fn(*(x.float() for x in xs))
+        return fn(*(x.to(torch.promote_types(x.dtype, torch.float32)) for x in xs))
 
 
 class FrozenBatchNorm(nn.Module):
@@ -51,7 +52,8 @@ class BatchNorm(nn.BatchNorm2d):
 
     Train mode normalises with the batch statistics and updates the running
     ones with momentum 0.1 from the *biased* batch variance, as flax does
-    (``nn.BatchNorm2d`` would use the unbiased one).  Eval mode uses the
+    (``nn.BatchNorm2d`` would use the unbiased one); one value per channel
+    gives the bias and a variance of 0, as in flax.  Eval mode uses the
     running statistics.  Both compute in f32 with autocast off and return
     f32, whatever the input's dtype: flax's BatchNorm carries no dtype, so
     it promotes a bf16 input with its f32 scale.
@@ -87,7 +89,11 @@ class BatchNorm(nn.BatchNorm2d):
             return F.batch_norm(x, self.running_mean, self.running_var,
                                 self.weight, self.bias, False, 0.0, self.eps)
         if self.sync and mesh.is_distributed():
-            return self._synced(x)
+            return self._from_sums(x, mesh.all_reduce_sum)
+        if x.numel() == x.shape[1]:
+            # one value per channel (DeepLab's image-pooling branch at batch
+            # 1): flax gives the bias and a variance of 0, F.batch_norm raises
+            return self._from_sums(x, lambda t: t)
         dims = [0] + list(range(2, x.dim()))
         with torch.no_grad():
             var, mean = torch.var_mean(x, dim=dims, unbiased=False)
@@ -95,16 +101,18 @@ class BatchNorm(nn.BatchNorm2d):
         return F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0,
                             self.eps)
 
-    def _synced(self, x: torch.Tensor) -> torch.Tensor:
+    def _from_sums(self, x: torch.Tensor, reduce) -> torch.Tensor:
+        """Normalise by the statistics of the sums ``reduce`` returns (the
+        all-reduce of the ranks' sums, or the identity)."""
         dims = [0] + list(range(2, x.dim()))
         shape = (-1,) + (1,) * (x.dim() - 2)
-        count = torch.full((1,), x.numel() / x.shape[1], dtype=torch.float32,
+        count = torch.full((1,), x.numel() / x.shape[1], dtype=x.dtype,
                            device=x.device)
-        sums = mesh.all_reduce_sum(torch.cat([x.sum(dims), count]))
+        sums = reduce(torch.cat([x.sum(dims), count]))
         n = sums[-1]
         mean = sums[:-1] / n
         centred = x - mean.view(shape)
-        var = mesh.all_reduce_sum((centred * centred).sum(dims)) / n
+        var = reduce((centred * centred).sum(dims)) / n
         self._update_running(mean, var)
         y = centred * torch.rsqrt(var + self.eps).view(shape)
         return y * self.weight.view(shape) + self.bias.view(shape)

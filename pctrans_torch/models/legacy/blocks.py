@@ -67,6 +67,11 @@ def get_legacy_norm(name: str, features: int,
     raise ValueError(f"Unknown norm: {name}")
 
 
+def apply_norm(norm: Optional[nn.Module], x: torch.Tensor) -> torch.Tensor:
+    """``norm(x)``, or ``x`` where the norm mode is ``none``."""
+    return x if norm is None else norm(x)
+
+
 def _to_tuple(v: IntOrSeq, rank: int) -> Tuple[int, ...]:
     if isinstance(v, int):
         return (v,) * rank
@@ -116,9 +121,7 @@ class ConvNormAct(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = self.conv(pad_spatial(x, self.ks, self.dil, self.pad_mode))
-        if self.norm0 is not None:
-            x = self.norm0(x)
-        return self.act(x)
+        return self.act(apply_norm(self.norm0, x))
 
 
 class SELayer(nn.Module):
@@ -208,9 +211,8 @@ class BasicBlockPA(nn.Module):
                                                projection) else None)
 
     def _norm_act_conv(self, h, norm, conv):
-        if norm is not None:
-            h = norm(h)
-        return conv(pad_spatial(self.act(h), self.ks, self.dil, self.pad_mode))
+        return conv(pad_spatial(self.act(apply_norm(norm, h)), self.ks, self.dil,
+                                self.pad_mode))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         y = self._norm_act_conv(x, self.norm0, self.conv1)
@@ -249,10 +251,7 @@ class NonLocalBlock(nn.Module):
         g = self.g(phi_in).flatten(2).transpose(1, 2)                # [B, m, c]
         attn = torch.matmul(theta, phi).float().softmax(-1).to(x.dtype)
         y = torch.matmul(attn, g).transpose(1, 2).reshape(B, -1, *spatial)
-        y = self.w(y)
-        if self.norm0 is not None:
-            y = self.norm0(y)
-        return y + x
+        return apply_norm(self.norm0, self.w(y)) + x
 
 
 def _linear_resize_axis(x: torch.Tensor, axis: int, out_n: int,

@@ -18,9 +18,11 @@ nested dicts of numpy arrays, ``{"params": ..., "frozen": ...,
 * ``batch_stats`` fill the BatchNorm running statistics.
 
 ``load_flax_legacy_variables(model, variables)`` does the same for the legacy
-U-Nets (``pctrans_torch/models/legacy``), whose modules carry the flax
-names: a block's ``BatchNorm_i`` / ``GroupNorm_i`` is its ``norm{i}``,
-everything else keeps its flax name.
+zoo (``pctrans_torch/models/legacy``), whose modules carry the flax names:
+a module's ``BatchNorm_i`` / ``GroupNorm_i`` is its ``norm{i}``, everything
+else keeps its flax name, BotNet's bare ``pos_emb_h`` / ``pos_emb_w``
+tables included (a RepVGG deploy tree's ``rbr_reparam`` is a conv like any
+other).
 
 Module names follow the flax tree with PyTorch containers
 (``cross3`` -> ``cross_layers.3``, ``Dense_1`` -> ``layers.1``,
@@ -175,14 +177,20 @@ def load_flax_variables(model: nn.Module,
 
 
 _LEGACY_NORM = re.compile(r"^(BatchNorm|GroupNorm)_(\d+)$")
+# bare parameters of the legacy zoo: BotNet's position tables [H | W, dim_head]
+_LEGACY_RAW = ("pos_emb_h", "pos_emb_w")
 
 
 def legacy_torch_key(col: str, path: Tuple[str, ...]) -> str:
     """Torch state-dict key of the flax leaf ``col/path`` of a legacy model."""
     *mods, leaf = path
-    if col not in ("params", "batch_stats") or leaf not in _LEAF[col]:
+    if col == "params" and leaf in _LEGACY_RAW:
+        name = leaf
+    elif col in ("params", "batch_stats") and leaf in _LEAF[col]:
+        name = _LEAF[col][leaf]
+    else:
         raise KeyError(f"unknown legacy leaf {col}/{'/'.join(path)}")
-    return ".".join([_LEGACY_NORM.sub(r"norm\2", m) for m in mods] + [_LEAF[col][leaf]])
+    return ".".join([_LEGACY_NORM.sub(r"norm\2", m) for m in mods] + [name])
 
 
 def load_flax_legacy_variables(model: nn.Module,

@@ -43,7 +43,7 @@ from pctrans_torch.engine.solver import parameter_groups
 from pctrans_torch.models import (BasePixelDecoder, PCTransModel, PerPixelBaselineHead,
                                   PerPixelBaselinePlusHead, StandardTransformerDecoder,
                                   TransformerEncoderPixelDecoder, build_architecture)
-from pctrans_torch.models.legacy import UNet
+from pctrans_torch.models.legacy import DeepLabV3, UNet
 from pctrans_torch.models.per_pixel import init_head
 from pctrans_torch.models.pixel_decoder import MSDeformAttnPixelDecoder
 from pctrans_torch.ops.resize import resize_bilinear
@@ -432,9 +432,9 @@ def test_detr_over_the_plain_fpn_raises():
                                  transformer_decoder_name="StandardTransformerDecoder"))
 
 
-# the ids are the cases' ids from before the U-Nets were ported
+# the ids are the cases' ids from before the legacy zoo was ported
 @pytest.mark.parametrize("arch,expect", [
-    ("MaskFormer", PCTransModel), ("unet_3d", UNet), ("deeplabv3b", NotImplementedError),
+    ("MaskFormer", PCTransModel), ("unet_3d", UNet), ("deeplabv3b", DeepLabV3),
     ("no_such_net", ValueError)], ids=["MaskFormer-None", "unet_3d-NotImplementedError",
                                        "deeplabv3b-NotImplementedError",
                                        "no_such_net-ValueError"])
@@ -445,5 +445,5 @@ def test_build_architecture_dispatch(arch, expect):
     if issubclass(expect, nn.Module):
         assert isinstance(build_architecture(cfg), expect)
     else:
-        with pytest.raises(expect, match="slice 6b" if expect is NotImplementedError else arch):
+        with pytest.raises(expect, match=arch):
             build_architecture(cfg)

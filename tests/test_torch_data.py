@@ -14,7 +14,7 @@ from pctrans_tpu.data.label_utils import relabel_consecutive as jax_relabel
 from pctrans_tpu.data.synthetic import SyntheticDataset as JaxSynthetic
 from pctrans_tpu.data.synthetic import batch_iterator as jax_batch_iterator
 from pctrans_torch import config
-from pctrans_torch.data import bbbc, build
+from pctrans_torch.data import bbbc, build, fixtures
 from pctrans_torch.data.label_utils import relabel_consecutive
 from pctrans_torch.data.synthetic import SyntheticDataset, batch_iterator
 
@@ -163,11 +163,36 @@ def test_synthetic_bbbc_batches_equal_the_jax_loader(mode):
     assert max(int(b["label"].max()) for b in got) >= 3
 
 
-@pytest.mark.parametrize("data_type,item", [("volume", "26"), ("tile", "26")])
-def test_unported_datasets_name_their_roadmap_item(data_type, item):
-    cfg = config.load_cfg(opts=["DATASET.DATA_TYPE", data_type])
-    with pytest.raises(NotImplementedError, match=f"ROADMAP item {item} "):
-        build.get_dataset(cfg, "train")
+# named when the two raised NotImplementedError naming ROADMAP item 26
+@pytest.mark.parametrize("data_type", ["volume", "tile"], ids=["volume-26", "tile-26"])
+def test_unported_datasets_name_their_roadmap_item(tmp_path, data_type):
+    """DATA_TYPE volume: two train batches of the loader (the EM augmentor,
+    affinity targets, weights) equal JAX's loader's; tile: each chunk's
+    samples equal JAX's TileDataset's."""
+    image, label = fixtures.em_volume((10, 192, 192), 0, n_ids=20)
+    fixtures.write_em_volume(tmp_path, image, label)
+    names = fixtures.write_em_tiles(tmp_path, image, label, 96)
+    opts = ["DATASET.DATA_TYPE", "volume", "DATASET.INPUT_PATH", f"{tmp_path}/",
+            "DATASET.DO_2D", "False", "MODEL.INPUT_SIZE", "[4, 24, 24]",
+            "MODEL.OUTPUT_SIZE", "[4, 24, 24]", "MODEL.TARGET_OPT", "['2']",
+            "MODEL.WEIGHT_OPT", "[['1']]", "SOLVER.SAMPLES_PER_BATCH", "2"]
+    if data_type == "volume":
+        ours, ref = _cfgs(opts + ["DATASET.IMAGE_NAME", "im/*.png",
+                                  "DATASET.LABEL_NAME", "seg.tif"])
+        _assert_same(_batches(build.build_dataloader(ours, "train"), 2),
+                     _batches(jax_build.build_dataloader(ref, "train"), 2))
+        return
+    ours, ref = _cfgs(opts + ["DATASET.DO_CHUNK_TITLE", "1", "DATASET.IMAGE_NAME", names["im"],
+                              "DATASET.LABEL_NAME", names["seg"],
+                              "DATASET.DATA_CHUNK_NUM", "[1, 1, 2]"])
+    ds, jds = build.get_dataset(ours, "train"), jax_build.get_dataset(ref, "train")
+    assert len(ds) == len(jds) == 3           # two chunks and the half step between
+    for _ in range(len(ds)):
+        ds.updatechunk()
+        jds.updatechunk()
+        assert ds.get_coord_name() == jds.get_coord_name()
+        _assert_same([ds.dataset.__getitem__(i, rng=np.random.RandomState(i)) for i in range(2)],
+                     [jds.dataset.__getitem__(i, rng=np.random.RandomState(i)) for i in range(2)])
 
 
 @pytest.mark.parametrize("data_type", ["CVPPP", "synthetic", "BBBC", "synthetic_bbbc"])

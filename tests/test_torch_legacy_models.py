@@ -21,8 +21,10 @@ from pctrans_tpu.models.legacy import blocks as jax_blocks
 from pctrans_torch.config import get_cfg_defaults
 from pctrans_torch.losses.legacy import LegacyCriterion
 from pctrans_torch.models import build_architecture
-from pctrans_torch.models.legacy import MODEL_MAP, NOT_PORTED, UNet, linear_resize
+from pctrans_torch.models.legacy import (MODEL_MAP, FPN3D, DeepLabV3, UNet, UNetResidual3D,
+                                         linear_resize)
 from pctrans_torch.weights import _flatten, legacy_torch_key, load_flax_legacy_variables
+from torch_legacy_parity import check_pair, flax_variables
 
 torch.set_num_threads(1)
 
@@ -81,7 +83,8 @@ def _pair(arch, block_type, train, seed=0, **kw):
     return jmodel, variables, model.train(train), x
 
 
-CASES = [(arch, block, train) for arch in MODEL_MAP
+UNETS = ("unet_3d", "unet_2d", "unet_plus_3d", "unet_plus_2d")
+CASES = [(arch, block, train) for arch in UNETS
          for block in ("residual", "residual_pa", "residual_se")
          for train in (False, True)]
 
@@ -168,7 +171,7 @@ def test_linear_resize_matches_jax(src, dst, align_corners):
     np.testing.assert_allclose(_nhwc(out.numpy()), np.asarray(ref), rtol=1e-5, atol=1e-6)
 
 
-@pytest.mark.parametrize("arch", list(MODEL_MAP))
+@pytest.mark.parametrize("arch", UNETS)
 def test_build_architecture_matches_jax(arch):
     """``build_architecture`` passes JAX's kwargs (FILTERS, ISOTROPY,
     BLOCK_TYPE, sync_bn -> bn, ...): the JAX model's variables fill the
@@ -191,12 +194,33 @@ def test_build_architecture_matches_jax(arch):
     load_flax_legacy_variables(model, {c: dict(t) for c, t in variables.items()})
 
 
-@pytest.mark.parametrize("arch", NOT_PORTED)
-def test_unported_legacy_names_raise(arch):
-    cfg = get_cfg_defaults()
-    cfg.MODEL.ARCHITECTURE = arch
-    with pytest.raises(NotImplementedError, match="slice 6b"):
-        build_architecture(cfg)
+# named when these five raised NotImplementedError; each builds its port
+# class now, held to JAX's build_architecture on the bridged weights
+@pytest.mark.parametrize("arch,cls", [
+    ("fpn_3d", FPN3D), ("deeplabv3a", DeepLabV3), ("deeplabv3b", DeepLabV3),
+    ("deeplabv3c", DeepLabV3), ("unet_residual_3d", UNetResidual3D)],
+    ids=["fpn_3d", "deeplabv3a", "deeplabv3b", "deeplabv3c", "unet_residual_3d"])
+def test_unported_legacy_names_raise(arch, cls):
+    """JAX's kwargs (FILTERS, BLOCKS, ISOTROPY, BACKBONES, AUX_OUT,
+    EMBEDDING, ...; DeepLab at ResNet-50's depth): the eval forward of the
+    port's model equals JAX's on the same variables."""
+    cfgs = []
+    for defaults in (jax_cfg_defaults, get_cfg_defaults):
+        cfg = defaults()
+        cfg.MODEL.ARCHITECTURE = arch
+        cfg.MODEL.IN_PLANES, cfg.MODEL.OUT_PLANES = 1, 2
+        cfg.MODEL.FILTERS = [4, 6, 8, 10, 12]
+        cfg.MODEL.BLOCKS = [1, 2, 1, 1]
+        cfg.MODEL.AUX_OUT = True
+        cfg.MODEL.INPUT_SIZE = [4, 16, 16]
+        cfgs.append(cfg)
+    shape = (1, 1, 17, 15) if arch.startswith("deeplab") else (1, 1, 4, 16, 16)
+    x = np.random.RandomState(0).randn(*shape).astype(np.float32)
+    jmodel = jax_build_architecture(cfgs[0], train=False)
+    variables = flax_variables(jmodel, x)
+    model = build_architecture(cfgs[1], torch.Generator().manual_seed(0))
+    assert type(model) is cls
+    check_pair(jmodel, variables, model, x, False)
 
 
 def test_legacy_bridge_rejects_missing_and_extra_keys():
