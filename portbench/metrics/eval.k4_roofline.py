@@ -1,0 +1,7 @@
+"""K4 (resize_bilinear_binarize) in eval: its calls' bound over the device time of the kernels inside their ranges."""
+
+from portbench import readers
+
+
+def read(run):
+    return readers.roofline_pct(run, "k4")

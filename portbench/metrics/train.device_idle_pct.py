@@ -1,0 +1,7 @@
+"""Share of the traced training window with no kernel, copy or set on the card."""
+
+from portbench import readers
+
+
+def read(run):
+    return readers.idle_pct(run)

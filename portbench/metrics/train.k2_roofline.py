@@ -1,0 +1,7 @@
+"""K2 (ms_deform_attn_backward) in training: its calls' bound over the device time of the kernels inside their ranges."""
+
+from portbench import readers
+
+
+def read(run):
+    return readers.roofline_pct(run, "k2")
