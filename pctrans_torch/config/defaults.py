@@ -273,7 +273,7 @@ def get_cfg_defaults() -> CfgNode:
     c.MONITOR.LOG_OPT = [1, 1, 0]
     c.MONITOR.VIS_OPT = [0, 8]
     c.MONITOR.ITERATION_NUM = [20, 200]
-    c.MONITOR.PROFILE_ITERS = None   # (start, stop) iteration window for a jax.profiler trace
+    c.MONITOR.PROFILE_ITERS = None   # (start, stop) iteration window for a torch.profiler trace
     # TensorBoard event stream (torch.utils.tensorboard). The first writer
     # import drags in tens of seconds of torch/tensorflow machinery on a
     # small host, so CI-style runs can turn it off; the JSONL stream is the

@@ -32,6 +32,7 @@ from ..inference.device_postprocess import (DevicePostprocessor, copy_to_host_as
                                             pipeline_batches, unpack_mask_stats)
 from ..inference.postprocess import merge_func
 from ..models import PCTransModel
+from ..utils import tracing
 from .eval_step import make_eval_step
 
 THRESHOLDS = {"cvppp": 0.69, "bbbc": 0.05}     # mask probability, per recipe
@@ -71,12 +72,14 @@ class Evaluator:
         x = self._images(images)
         masks, stats = self._step(x)
         self.forwards += 1
-        stats = stats.cpu().numpy()
+        with tracing.span("wait.stats"):
+            stats = stats.cpu().numpy()
         if self._lossy(masks, stats):
             # run again with all queries
             masks, stats = self._full_step(x)
             self.forwards += 1
-            stats = stats.cpu().numpy()
+            with tracing.span("wait.stats"):
+                stats = stats.cpu().numpy()
         return masks, stats
 
     def label_masks(self, masks: torch.Tensor, stats: np.ndarray) -> np.ndarray:
@@ -87,7 +90,9 @@ class Evaluator:
 
     def predict_masks(self, images: np.ndarray) -> np.ndarray:
         """images [B, H, W, 3] -> u8 masks [B, K, H, W] on the host."""
-        return self.masks_and_stats(images)[0].cpu().numpy()
+        masks = self.masks_and_stats(images)[0]
+        with tracing.span("wait.masks"):
+            return masks.cpu().numpy()
 
     def predict_labels(self, images: np.ndarray) -> np.ndarray:
         """images [B, H, W, 3] -> int16 instance label maps [B, H, W]."""
@@ -100,7 +105,7 @@ class Evaluator:
         x = self._images(images)
         masks, stats = self._step(x)
         self.forwards += 1
-        return x, masks, copy_to_host_async(stats, self._copy_stream)
+        return x, masks, copy_to_host_async(stats, self._copy_stream, "stats")
 
     def _cluster(self, handles):
         """Stage 1: the TOP_K lossiness check on the landed statistics (a
@@ -110,15 +115,17 @@ class Evaluator:
         x, masks, stats = handles
         stats = stats.wait().numpy()
         if self._lossy(masks, stats):
-            masks, stats = self._full_step(x)
-            self.forwards += 1
-            stats = stats.cpu().numpy()
+            with tracing.span("eval.rerun"):
+                masks, stats = self._full_step(x)
+                self.forwards += 1
+                with tracing.span("wait.stats"):
+                    stats = stats.cpu().numpy()
         areas, inter, _ = unpack_mask_stats(stats)
         pending = self.postprocessor.start(masks, areas, inter)
         if isinstance(pending, torch.Tensor):
             return pending
         merged, m_stats, clusters = pending
-        return merged, copy_to_host_async(m_stats, self._copy_stream), clusters
+        return merged, copy_to_host_async(m_stats, self._copy_stream, "merged_stats"), clusters
 
     def _label_pipeline(self, batches: Iterable[Dict[str, np.ndarray]]
                         ) -> Iterator[Tuple[Dict[str, np.ndarray], np.ndarray]]:
@@ -126,15 +133,23 @@ class Evaluator:
         through five stages one batch apart: dispatch; lossiness check,
         clustering and the device tail; CVPPP's NMS and the paint, which
         starts the label map's copy; a pass-through lag that gives that copy
-        a batch interval to land; collect."""
-        return pipeline_batches(
-            batches,
-            lambda b, _: self._dispatch(b["image"]),
-            lambda b, h: self._cluster(h),
-            lambda b, p: copy_to_host_async(self.postprocessor.finish(p), self._copy_stream),
-            lambda b, lab: lab,
-            lambda b, lab: lab.wait().numpy(),
-        )
+        a batch interval to land; collect.  Each stage but the lag is span
+        ``eval.<stage>`` keyed by the batch's index."""
+        def staged(name, fn):
+            def stage(kb, value):
+                with tracing.span(name, key=kb[0]):
+                    return fn(kb[1], value)
+            return stage
+
+        for (_, batch), labels in pipeline_batches(
+                enumerate(batches),
+                staged("eval.dispatch", lambda b, _: self._dispatch(b["image"])),
+                staged("eval.cluster", lambda b, h: self._cluster(h)),
+                staged("eval.finish", lambda b, p: copy_to_host_async(
+                    self.postprocessor.finish(p), self._copy_stream, "labels")),
+                lambda kb, lab: lab,
+                staged("eval.collect", lambda b, lab: lab.wait().numpy())):
+            yield batch, labels
 
     def eval_cvppp(self, batches: Iterable[Dict[str, np.ndarray]]
                    ) -> Dict[str, float]:
@@ -142,30 +157,32 @@ class Evaluator:
         batch padded to full size (``_num_valid``, ``data/build.py``) is
         scored on its valid rows only."""
         sbd_all, diff_all, n = 0.0, 0.0, 0
-        for batch, labels in self._label_pipeline(batches):
-            for b in range(int(batch.get("_num_valid", labels.shape[0]))):
-                seg = labels[b].astype(np.uint16)
-                if "fg" in batch:
-                    seg = seg * (batch["fg"][b] > 0).astype(np.uint16)
-                gt = batch["label"][b].astype(np.uint16)
-                sbd_all += mc.SymmetricBestDice(seg, gt)
-                diff_all += abs(mc.DiffFGLabels(seg, gt))
-                n += 1
+        for k, (batch, labels) in enumerate(self._label_pipeline(batches)):
+            with tracing.span("eval.score", key=k):
+                for b in range(int(batch.get("_num_valid", labels.shape[0]))):
+                    seg = labels[b].astype(np.uint16)
+                    if "fg" in batch:
+                        seg = seg * (batch["fg"][b] > 0).astype(np.uint16)
+                    gt = batch["label"][b].astype(np.uint16)
+                    sbd_all += mc.SymmetricBestDice(seg, gt)
+                    diff_all += abs(mc.DiffFGLabels(seg, gt))
+                    n += 1
         return {"SBD": sbd_all / max(n, 1), "absDiffFG": diff_all / max(n, 1)}
 
     def test_bbbc(self, batches: Iterable[Dict[str, np.ndarray]]) -> Dict[str, float]:
         """Mean and std of AJI, pixel F1, detection F1 and PQ (match IoU
         0.5) over batches {"image", "label"}, on the valid rows of each."""
         scores = {"AJI": [], "F1": [], "detF1": [], "PQ": []}
-        for batch, labels in self._label_pipeline(batches):
-            for b in range(int(batch.get("_num_valid", labels.shape[0]))):
-                gt = mb.remap_label(batch["label"][b], by_size=False)
-                pred = mb.remap_label(labels[b], by_size=False)
-                scores["AJI"].append(mb.agg_jc_index(gt, pred))
-                scores["F1"].append(mb.pixel_f1(gt, pred))
-                dq, _, pq = mb.get_fast_pq(gt, pred, match_iou=0.5)[0]
-                scores["detF1"].append(dq)
-                scores["PQ"].append(pq)
+        for k, (batch, labels) in enumerate(self._label_pipeline(batches)):
+            with tracing.span("eval.score", key=k):
+                for b in range(int(batch.get("_num_valid", labels.shape[0]))):
+                    gt = mb.remap_label(batch["label"][b], by_size=False)
+                    pred = mb.remap_label(labels[b], by_size=False)
+                    scores["AJI"].append(mb.agg_jc_index(gt, pred))
+                    scores["F1"].append(mb.pixel_f1(gt, pred))
+                    dq, _, pq = mb.get_fast_pq(gt, pred, match_iou=0.5)[0]
+                    scores["detF1"].append(dq)
+                    scores["PQ"].append(pq)
         res = {}
         for k, v in scores.items():
             res[k] = float(np.mean(v))

@@ -17,6 +17,11 @@ generator)(batch)`` runs one optimizer step on
      scheduler step.
 
 Returns the total (``"loss"``) and every raw loss as detached 0-d tensors.
+While tracing is on (``utils/tracing``) the step is span ``train.step``
+with one child per phase: ``step.input`` (1 and the draws),
+``step.forward``, ``step.criterion``, ``step.backward``,
+``step.allreduce`` and ``step.optimizer`` (the clipping, the optimizer
+and scheduler steps and the losses' stack).
 The criterion's uniform draws (:meth:`SetCriterion.draws`) come from
 ``generator`` unless the caller passes ``reid_uniform`` [B, max_instances,
 Q] and, in a point mode, ``point_draws``; a Swin backbone's drop path draws
@@ -44,6 +49,7 @@ from ..data.targets import targets_from_labels
 from ..losses.criterion import SetCriterion
 from ..models import PCTransModel
 from ..parallel import mesh
+from ..utils import tracing
 from .solver import SolverConfig, clip_gradients
 
 
@@ -79,34 +85,44 @@ def make_train_step(model: PCTransModel, criterion: SetCriterion,
     def train_step(batch: Dict, reid_uniform: Optional[torch.Tensor] = None,
                    point_draws: Optional[Dict[str, torch.Tensor]] = None
                    ) -> Dict[str, torch.Tensor]:
-        model.train()
-        images = widen_images(torch.as_tensor(batch["image"]).to(device), input_range)
-        labels = torch.as_tensor(batch["label"]).to(device).int()
-        targets = targets_from_labels(labels, max_instances)
-        world = mesh.world_size()
-        mesh.check_equal_across_ranks(images.shape[0], "the per-rank batch")
-        if reid_uniform is None or (point_draws is None and not dense):
-            reid, drawn = criterion.draws(images.shape[0] * world, max_instances,
-                                          num_queries, generator, device)
-            reid_uniform = reid if reid_uniform is None else reid_uniform
-            point_draws = drawn if point_draws is None else point_draws
-        reid_uniform, point_draws = criterion.rank_draws(
-            reid_uniform.to(device), {k: v.to(device) for k, v in (point_draws or {}).items()})
-        optimizer.zero_grad(set_to_none=True)
-        outputs = model(images, generator=generator)
-        total, losses, _ = criterion(outputs, targets, reid_uniform, point_draws or None)
-        total.backward()
-        mesh.average_gradients(model.parameters())
-        if solver is not None:
-            clip_gradients(model.parameters(), solver)
-        optimizer.step()
-        metrics = {"loss": total.detach(), **{k: v.detach() for k, v in losses.items()}}
-        if world > 1:
-            stacked = mesh.global_sum(torch.stack(list(metrics.values())).float()) / world
-            metrics = dict(zip(metrics, stacked.unbind()))
-        if getattr(scheduler, "plateau", False):
-            scheduler.observe(float(metrics["loss"]))
-        scheduler.step()
-        return metrics
+        with tracing.span("train.step"):
+            model.train()
+            with tracing.span("step.input"):
+                images = widen_images(torch.as_tensor(batch["image"]).to(device), input_range)
+                labels = torch.as_tensor(batch["label"]).to(device).int()
+                targets = targets_from_labels(labels, max_instances)
+                world = mesh.world_size()
+                mesh.check_equal_across_ranks(images.shape[0], "the per-rank batch")
+                if reid_uniform is None or (point_draws is None and not dense):
+                    reid, drawn = criterion.draws(images.shape[0] * world, max_instances,
+                                                  num_queries, generator, device)
+                    reid_uniform = reid if reid_uniform is None else reid_uniform
+                    point_draws = drawn if point_draws is None else point_draws
+                reid_uniform, point_draws = criterion.rank_draws(
+                    reid_uniform.to(device),
+                    {k: v.to(device) for k, v in (point_draws or {}).items()})
+                optimizer.zero_grad(set_to_none=True)
+            with tracing.span("step.forward"):
+                outputs = model(images, generator=generator)
+            with tracing.span("step.criterion"):
+                total, losses, _ = criterion(outputs, targets, reid_uniform,
+                                             point_draws or None)
+            with tracing.span("step.backward"):
+                total.backward()
+            with tracing.span("step.allreduce"):
+                mesh.average_gradients(model.parameters())
+            with tracing.span("step.optimizer"):
+                if solver is not None:
+                    clip_gradients(model.parameters(), solver)
+                optimizer.step()
+                metrics = {"loss": total.detach(),
+                           **{k: v.detach() for k, v in losses.items()}}
+                if world > 1:
+                    stacked = mesh.global_sum(torch.stack(list(metrics.values())).float()) / world
+                    metrics = dict(zip(metrics, stacked.unbind()))
+                if getattr(scheduler, "plateau", False):
+                    scheduler.observe(float(metrics["loss"]))
+                scheduler.step()
+            return metrics
 
     return train_step

@@ -31,7 +31,13 @@ step and evaluator, on one device.
   ``logging.txt``, profiles, and validates, while the others wait at a
   barrier.  The SWA BatchNorm refresh runs on every rank (SyncBN's
   statistics are collective).
-* MONITOR.PROFILE_ITERS opens a ``torch.profiler`` window (``utils/monitor``);
+* MONITOR.PROFILE_ITERS opens a ``torch.profiler`` window (``utils/monitor``),
+  in which the port's spans are on (``utils/tracing``): each iteration is
+  span ``train.iteration`` keyed by the iteration (a record without a
+  profiler range), with children
+  ``train.loader`` (``next()`` and the transfer), ``train.step``
+  (``engine/train_step``), ``train.monitor``, and ``train.swa``,
+  ``train.validate`` and ``train.checkpoint`` when they run;
   each validation logs one batch's panels (``utils/visualizer``), and a
   failure there is printed and does not stop training.
 * INFERENCE.AUG_MODE builds the ``TestAugmentor`` in test mode for naming
@@ -58,6 +64,7 @@ from ..losses.criterion import SetCriterion, build_criterion_config
 from ..models import PCTransModel
 from ..models.resnet import convert_d2_r50_pickle
 from ..parallel import mesh
+from ..utils import tracing
 from ..utils.monitor import build_monitor
 from . import checkpoint as ckpt
 from .evaluator import Evaluator
@@ -188,30 +195,15 @@ class Trainer:
         cfg = self.cfg
         t0 = time.perf_counter()
         val_every = int(cfg.SOLVER.get("ITERATION_VAL", 0) or 0)
-        swa = cfg.SOLVER.SWA
         for it in range(self.start_iter, self.total_iters):
             if self.monitor is not None:
+                # before the iteration's span: a profiler window opened
+                # here traces the whole iteration
                 self.monitor.profile_steps(it)
-            metrics = self._train_step(self.transfer_batch(next(self.train_loader)))
-            if self.monitor is not None:
-                lr = self.solver.base_lr * lr_factor(it, self.solver)
-                self.monitor.update(it, metrics, lr, total_iters=self.total_iters)
-            if self.swa is not None:
-                self.swa = maybe_update_swa(self.swa, dict(self.model.named_parameters()),
-                                            it + 1, swa.START_ITER, swa.MERGE_ITER)
-            if val_every and (it + 1) % val_every == 0:
-                if self.is_main:
-                    self.validate(it + 1)
-                mesh.barrier()
-            if (it + 1) % cfg.SOLVER.ITERATION_SAVE == 0 and \
-                    (it + 1) >= cfg.SOLVER.START_SAVE:
-                if self.is_main:
-                    self.save_checkpoint(it)
-                mesh.barrier()
-                # checkpoint_swa at each save point too: the averaged
-                # weights live in memory only between merges
-                if self.swa is not None and self.swa.params is not None:
-                    self.save_swa_checkpoint(it + 1)
+            # a record without a profiler range: a caller's wrapper of the
+            # step may open or close a profiler window inside it
+            with tracing.span("train.iteration", key=it, ranged=False):
+                self._iteration(it, val_every)
         if self.swa is not None and self.swa.params is not None:
             self.save_swa_checkpoint(self.total_iters)
         if self.device.type == "cuda":
@@ -221,6 +213,37 @@ class Trainer:
         if self.monitor is not None:
             self.monitor.close()
         return time.perf_counter() - t0
+
+    def _iteration(self, it: int, val_every: int) -> None:
+        """The loop body: the batch, the step, the monitor, SWA,
+        validation and checkpoints."""
+        cfg, swa = self.cfg, self.cfg.SOLVER.SWA
+        with tracing.span("train.loader"):
+            batch = self.transfer_batch(next(self.train_loader))
+        metrics = self._train_step(batch)
+        if self.monitor is not None:
+            with tracing.span("train.monitor"):
+                lr = self.solver.base_lr * lr_factor(it, self.solver)
+                self.monitor.update(it, metrics, lr, total_iters=self.total_iters)
+        if self.swa is not None:
+            with tracing.span("train.swa"):
+                self.swa = maybe_update_swa(self.swa, dict(self.model.named_parameters()),
+                                            it + 1, swa.START_ITER, swa.MERGE_ITER)
+        if val_every and (it + 1) % val_every == 0:
+            with tracing.span("train.validate"):
+                if self.is_main:
+                    self.validate(it + 1)
+                mesh.barrier()
+        if (it + 1) % cfg.SOLVER.ITERATION_SAVE == 0 and \
+                (it + 1) >= cfg.SOLVER.START_SAVE:
+            with tracing.span("train.checkpoint"):
+                if self.is_main:
+                    self.save_checkpoint(it)
+                mesh.barrier()
+                # checkpoint_swa at each save point too: the averaged
+                # weights live in memory only between merges
+                if self.swa is not None and self.swa.params is not None:
+                    self.save_swa_checkpoint(it + 1)
 
     def validate(self, iteration: int) -> Dict[str, float]:
         """Score the val split, log it, and keep ``checkpoint_best`` at the

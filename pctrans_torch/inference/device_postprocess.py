@@ -36,6 +36,7 @@ from typing import Iterable, List, Optional
 import numpy as np
 import torch
 
+from ..utils import tracing
 from .postprocess import clusters_from_dice, dice_from_stats, nms_keep
 
 CLUSTER_THRESHOLDS = {"cvppp": (0.5, 0.6), "bbbc": (0.15, 0.25)}   # (dice, merge)
@@ -200,7 +201,11 @@ class DevicePostprocessor:
         if isinstance(pending, torch.Tensor):
             return pending
         merged, m_stats, clusters = pending
-        m_stats = m_stats.wait() if isinstance(m_stats, HostCopy) else m_stats.cpu()
+        if isinstance(m_stats, HostCopy):
+            m_stats = m_stats.wait()
+        else:
+            with tracing.span("wait.merged_stats"):
+                m_stats = m_stats.cpu()
         m_areas, m_inter = unpack_mask_stats(m_stats.numpy())
         B, K = m_areas.shape
         perm = np.zeros((B, K), np.int64)
@@ -221,7 +226,9 @@ class DevicePostprocessor:
     def __call__(self, masks: torch.Tensor, areas: np.ndarray,
                  inter: np.ndarray) -> np.ndarray:
         """Both stages back to back; the label maps on the host."""
-        return self.finish(self.start(masks, areas, inter)).cpu().numpy()
+        labels = self.finish(self.start(masks, areas, inter))
+        with tracing.span("wait.labels"):
+            return labels.cpu().numpy()
 
 
 class HostCopy:
@@ -233,10 +240,13 @@ class HostCopy:
     current stream; ``record_stream`` keeps the caching allocator from
     handing the source's memory out before the copy has read it, and the
     consumer waits on the event recorded after the copy, never on the whole
-    device.  On the CPU the copy is done at once and there is no event."""
+    device.  On the CPU the copy is done at once and there is no event.
+    ``wait()`` is span ``wait.<name>``."""
 
-    def __init__(self, t: torch.Tensor, stream: Optional["torch.cuda.Stream"] = None):
+    def __init__(self, t: torch.Tensor, stream: Optional["torch.cuda.Stream"] = None,
+                 name: str = "host_copy"):
         self.event = None
+        self.name = name
         if not t.is_cuda:
             self.host = t.detach().clone()
             return
@@ -251,15 +261,19 @@ class HostCopy:
         t.record_stream(stream)
 
     def wait(self) -> torch.Tensor:
-        if self.event is not None:
-            self.event.synchronize()
+        with tracing.span("wait." + self.name):
+            if self.event is not None:
+                tracing.count("host_syncs")
+                self.event.synchronize()
         return self.host
 
 
 def copy_to_host_async(t: torch.Tensor,
-                       stream: Optional["torch.cuda.Stream"] = None) -> HostCopy:
-    """Start ``t``'s copy to the host on ``stream`` (:class:`HostCopy`)."""
-    return HostCopy(t, stream)
+                       stream: Optional["torch.cuda.Stream"] = None,
+                       name: str = "host_copy") -> HostCopy:
+    """Start ``t``'s copy to the host on ``stream`` (:class:`HostCopy`;
+    its wait is span ``wait.<name>``)."""
+    return HostCopy(t, stream, name)
 
 
 def pipeline_batches(batches: Iterable, *stages):

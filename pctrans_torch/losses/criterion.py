@@ -40,6 +40,7 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from ..parallel import mesh
+from ..utils import tracing
 from ..ops.point_sample import (get_uncertain_point_coords, grid_sample_bilinear,
                                 kth_largest_threshold, point_sample,
                                 sample_label_onehot, sample_label_onehot_grid,
@@ -372,7 +373,8 @@ class SetCriterion:
         stacked = torch.stack(all_masks)
         tgt_dense = None
         if indices is None:
-            indices, tgt_dense = self.match(stacked, targets, point_draws)
+            with tracing.span("criterion.match"):
+                indices, tgt_dense = self.match(stacked, targets, point_draws)
         # the global batch's count over the ranks, as JAX's ``valid.sum()``
         # over the batch-sharded mesh; each rank's term is then
         # world * (its sum) / (the global count), so the mean over ranks

@@ -44,6 +44,7 @@ import torch
 from torch import nn
 
 from ..config import ModelConfig, validate
+from ..utils import tracing
 from .detr_decoder import StandardTransformerDecoder
 from .fpn_decoder import build_fpn_decoder
 from .pixel_decoder import MSDeformAttn, MSDeformAttnPixelDecoder, sampling_offset_bias
@@ -104,16 +105,19 @@ class PCTransModel(nn.Module):
         x = images.permute(0, 3, 1, 2).contiguous()
         with torch.autocast(x.device.type, dtype=torch.bfloat16,
                             enabled=self.config.dtype == "bfloat16"):
-            feats = (self.backbone(x, generator)
-                     if isinstance(self.backbone, SwinTransformer) else self.backbone(x))
-            if isinstance(self.pixel_decoder, MSDeformAttnPixelDecoder):
-                mask_features, enc_top, multi_scale = self.pixel_decoder(feats, impl=impl)
-            else:
-                mask_features, enc_top, multi_scale = self.pixel_decoder(feats)
-            if isinstance(self.predictor, StandardTransformerDecoder):
-                out = self.predictor(enc_top, mask_features)
-            else:
-                out = self.predictor(multi_scale, mask_features, impl=impl)
+            with tracing.span("model.backbone"):
+                feats = (self.backbone(x, generator)
+                         if isinstance(self.backbone, SwinTransformer) else self.backbone(x))
+            with tracing.span("model.pixel_decoder"):
+                if isinstance(self.pixel_decoder, MSDeformAttnPixelDecoder):
+                    mask_features, enc_top, multi_scale = self.pixel_decoder(feats, impl=impl)
+                else:
+                    mask_features, enc_top, multi_scale = self.pixel_decoder(feats)
+            with tracing.span("model.predictor"):
+                if isinstance(self.predictor, StandardTransformerDecoder):
+                    out = self.predictor(enc_top, mask_features)
+                else:
+                    out = self.predictor(multi_scale, mask_features, impl=impl)
         out["mask_features"] = mask_features.permute(0, 2, 3, 1).float()
         return out
 

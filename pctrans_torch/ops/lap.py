@@ -15,6 +15,8 @@ import numpy as np
 import torch
 from scipy.optimize import linear_sum_assignment
 
+from ..utils import tracing
+
 
 def match_padded(cost: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
     """cost [N, Q, G] (query x ground-truth slot), valid [N, G] bool.
@@ -26,8 +28,10 @@ def match_padded(cost: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
     N, Q, G = cost.shape
     if Q < G:
         raise ValueError(f"match_padded: {Q} queries for {G} slots")
-    cost_h = cost.detach().float().cpu().numpy()
-    valid_h = valid.cpu().numpy()
+    with tracing.span("wait.lap_costs"):
+        cost_h = cost.detach().float().cpu().numpy()
+    with tracing.span("wait.lap_valid"):
+        valid_h = valid.cpu().numpy()
     out = np.zeros((N, G), np.int64)
     for n in range(N):
         cols = np.flatnonzero(valid_h[n])

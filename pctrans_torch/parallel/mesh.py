@@ -29,6 +29,8 @@ from typing import Iterable, Optional
 import torch
 import torch.distributed as dist
 
+from ..utils import tracing
+
 DEFAULT_TIMEOUT = datetime.timedelta(minutes=30)
 _ENV = ("MASTER_ADDR", "MASTER_PORT", "WORLD_SIZE", "RANK")
 
@@ -140,7 +142,9 @@ def average_gradients(params: Iterable[torch.nn.Parameter]) -> None:
     dev = params[0].device
     has = torch.tensor([p.grad is not None for p in params], dtype=torch.int32, device=dev)
     dist.all_reduce(has)
-    reached = [p for p, h in zip(params, has.tolist()) if h]
+    with tracing.span("wait.mesh_has"):
+        has = has.tolist()
+    reached = [p for p, h in zip(params, has) if h]
     if not reached:
         return
     flat = torch.cat([(p.grad if p.grad is not None else torch.zeros_like(p)).reshape(-1)

@@ -7,7 +7,11 @@ and a console line with the marginal time per iteration and the ETA.
 traces iterations ``start .. stop - 1`` with ``torch.profiler`` (CPU and,
 on a card, CUDA activity) and writes a Chrome trace under
 ``OUTPUT_PATH/profile/``.  A run resumed past ``start`` still traces what is
-left of the window.  The trainer builds the monitor on rank 0 only.
+left of the window.  While it is open the port's spans are on
+(``utils/tracing``): the trace carries their ``pctrans.*`` ranges, and each
+console line adds the host ms per iteration of each train-step phase since
+the line before (the phases of ``PHASES``, and ``outside``: the iteration
+less its step).  The trainer builds the monitor on rank 0 only.
 """
 
 from __future__ import annotations
@@ -18,6 +22,36 @@ import time
 from typing import Dict, Optional
 
 import torch
+
+from . import tracing
+
+# console name -> the spans it sums (``engine/train_step.py``)
+PHASES = {"input": ("step.input",), "forward": ("step.forward",),
+          "criterion": ("step.criterion",), "backward": ("step.backward",),
+          "allreduce": ("step.allreduce",), "optimizer": ("step.optimizer",)}
+
+
+def phase_ms(spans) -> Dict[str, float]:
+    """Host ms per iteration of each phase over the iterations whose
+    ``train.iteration`` and ``train.step`` spans are both among ``spans``
+    (``tracing.Record``s); ``outside`` is the iteration less its step.
+    Empty when there is no such iteration."""
+    by = {}
+    for r in spans:
+        if r.key is not None:
+            by.setdefault(r.key, []).append(r)
+    whole = {k: rs for k, rs in by.items()
+             if {"train.iteration", "train.step"} <= {r.name for r in rs}}
+    if not whole:
+        return {}
+    out = {}
+    for phase, names in PHASES.items():
+        out[phase] = sum(r.t1_ns - r.t0_ns for rs in whole.values() for r in rs
+                         if r.name in names) / 1e6 / len(whole)
+    out["outside"] = sum((r.t1_ns - r.t0_ns) * (1 if r.name == "train.iteration" else -1)
+                         for rs in whole.values() for r in rs
+                         if r.name in ("train.iteration", "train.step")) / 1e6 / len(whole)
+    return out
 
 
 class Monitor:
@@ -41,6 +75,7 @@ class Monitor:
         self._profiler = None
         self._window: Optional[tuple] = None      # the traced (start, stop)
         self.trace_path: Optional[str] = None
+        self._spans_seen = 0                      # the table's spans already logged
 
     def profile_steps(self, iteration: int) -> None:
         """Start or stop the profiler window; call once per iteration,
@@ -58,6 +93,7 @@ class Monitor:
             self._profiler = profile(activities=activities)
             self._profiler.__enter__()
             self._window = (iteration, stop)
+            self._spans_seen = len(tracing.table()["spans"])
             print(f"[profiler] tracing iterations {iteration}..{stop - 1}")
         elif iteration >= stop and self._profiler is not None:
             self._stop_profile()
@@ -85,7 +121,8 @@ class Monitor:
         if iteration % self.log_every:
             return
         now = time.perf_counter()
-        values = {k: float(v) for k, v in scalars.items()}
+        with tracing.span("wait.monitor"):
+            values = {k: float(v) for k, v in scalars.items()}
         self.jsonl.write(json.dumps({"iter": iteration, "lr": float(lr), **values}) + "\n")
         self.jsonl.flush()
         if self.tb is not None:
@@ -98,7 +135,23 @@ class Monitor:
         self._last_iter, self._last = iteration, now
         eta_h = avg * max((total_iters or 0) - iteration, 0) / 3600.0
         print(f"[Iteration {iteration:05d}] loss: {values.get('loss', float('nan')):.4f}, "
-              f"lr: {lr:.3e}, avg iter: {avg:.3f}s, ETA: {eta_h:.2f}h", flush=True)
+              f"lr: {lr:.3e}, avg iter: {avg:.3f}s, ETA: {eta_h:.2f}h"
+              + self._phases_line(), flush=True)
+
+    def _phases_line(self) -> str:
+        """While the profiler window is open: the phases' ms per iteration
+        since the last line.  The spans of the iteration still open stay
+        for the next line."""
+        if self._profiler is None:
+            return ""
+        spans = tracing.table()["spans"]
+        last = max((i for i in range(self._spans_seen, len(spans))
+                    if spans[i].name == "train.iteration"), default=None)
+        if last is None:
+            return ""
+        ms = phase_ms(spans[self._spans_seen:last + 1])
+        self._spans_seen = last + 1
+        return ", ms/iter: " + ", ".join(f"{k} {v:.1f}" for k, v in ms.items()) if ms else ""
 
     def add_eval(self, iteration: int, metrics: Dict[str, float]) -> None:
         rec = {"iter": iteration, "eval": {k: float(v) for k, v in metrics.items()}}
