@@ -6,6 +6,7 @@ embeddings return the JAX layouts ([H, W, C] and [..., 2*dim*points]).
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Optional
 
@@ -14,6 +15,20 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..parallel import mesh
+
+
+@functools.lru_cache(maxsize=None)
+def device_constant(values: tuple, device: torch.device,
+                    dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """``torch.tensor(values, dtype, device)``, built once per (values,
+    device, dtype) and shared, so read-only.  Built on every call, such a
+    constant is a host-to-device copy that waits for the card, and it
+    cannot be captured in a CUDA graph.  Never evicted: a captured graph
+    reads its address (a few entries per input shape).  Made outside
+    inference mode, so that a train step may save it for backward after
+    an eval made it."""
+    with torch.inference_mode(False):
+        return torch.tensor(values, dtype=dtype, device=device)
 
 
 def in_f32(fn, *xs: torch.Tensor):

@@ -45,8 +45,10 @@ from torch import nn
 
 from ..config import ModelConfig, validate
 from ..utils import tracing
+from . import graphs
 from .detr_decoder import StandardTransformerDecoder
 from .fpn_decoder import build_fpn_decoder
+from .layers import device_constant
 from .pixel_decoder import MSDeformAttn, MSDeformAttnPixelDecoder, sampling_offset_bias
 from .resnet import STAGE_CHANNELS, ResNet
 from .swin import SwinTransformer, WindowAttention
@@ -97,10 +99,18 @@ class PCTransModel(nn.Module):
                 generator: Optional[torch.Generator] = None) -> Dict[str, Any]:
         """images: [B, H, W, 3] f32.  ``impl="twin"`` runs every kernel's
         plain twin (for kernel-vs-twin comparisons on the card);
-        ``generator`` feeds the Swin backbone's drop path in train mode."""
+        ``generator`` feeds the Swin backbone's drop path in train mode.
+        The eval forward on the card replays CUDA graphs where
+        ``graphs.why_eager`` finds nothing against it (``models/graphs.py``)."""
+        if graphs.why_eager(self, images, impl, generator) is None:
+            return graphs.run(self, images, self._forward)
+        return self._forward(images, impl, generator)
+
+    def _forward(self, images: torch.Tensor, impl: Optional[str] = None,
+                 generator: Optional[torch.Generator] = None) -> Dict[str, Any]:
         c = self.config
-        mean = torch.tensor(c.pixel_mean, device=images.device)
-        std = torch.tensor(c.pixel_std, device=images.device)
+        mean = device_constant(tuple(c.pixel_mean), images.device)
+        std = device_constant(tuple(c.pixel_std), images.device)
         images = (images.float() - mean) / std
         x = images.permute(0, 3, 1, 2).contiguous()
         with torch.autocast(x.device.type, dtype=torch.bfloat16,

@@ -24,9 +24,11 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..ops.msdeform import ms_deform_attn
+from ..ops.msdeform import ms_deform_attn  # noqa: F401  (called as hand_kernel's attribute)
 from ..ops.resize import resize_bilinear
-from .layers import ConvNorm, GroupNorm, LayerNorm, in_f32, position_embedding_sine
+from .graphs import hand_kernel
+from .layers import (ConvNorm, GroupNorm, LayerNorm, device_constant, in_f32,
+                     position_embedding_sine)
 
 
 def sampling_offset_bias(n_heads: int, n_levels: int, n_points: int) -> np.ndarray:
@@ -68,13 +70,14 @@ class MSDeformAttn(nn.Module):
             offsets = self.sampling_offsets(q).reshape(B, Lq, M, L, P, 2)
             attn = self.attention_weights(q).reshape(B, Lq, M, L * P)
             attn = attn.softmax(-1).reshape(B, Lq, M, L, P)
-            normalizer = torch.tensor([[w, h] for (h, w) in spatial_shapes],
-                                      dtype=torch.float32, device=q.device)
+            normalizer = device_constant(tuple((w, h) for (h, w) in spatial_shapes),
+                                         q.device)
             return (ref[:, :, None, :, None, :]
                     + offsets / normalizer[None, None, None, :, None, :]), attn
 
         locations, attn = in_f32(sampling, query, reference_points)
-        out = ms_deform_attn(value, spatial_shapes, locations, attn, impl=impl)
+        out = hand_kernel(__name__, "ms_deform_attn", value, spatial_shapes, locations,
+                          attn, impl=impl)
         return self.output_proj(out)
 
 

@@ -21,6 +21,7 @@ window at init, and the weight bridge places it at the centre.
 
 from __future__ import annotations
 
+import functools
 from typing import Dict, Optional, Sequence, Tuple
 
 import numpy as np
@@ -55,6 +56,15 @@ def relative_position_index(ws: int, table_ws: Optional[int] = None) -> np.ndarr
     flat = coords.reshape(2, -1)
     rel = (flat[:, :, None] - flat[:, None, :]).transpose(1, 2, 0) + (t - 1)
     return rel[:, :, 0] * (2 * t - 1) + rel[:, :, 1]
+
+
+@functools.lru_cache(maxsize=None)
+def clamped_position_index(ws: int, table_ws: int, device: torch.device) -> torch.Tensor:
+    """:func:`relative_position_index` of a window clamped to ``ws`` on
+    ``device``, built once per (ws, table, device) and shared, so
+    read-only: built on every call it would be a host-to-device copy."""
+    with torch.inference_mode(False):
+        return torch.from_numpy(relative_position_index(ws, table_ws)).to(device)
 
 
 def shift_attn_mask(Hp: int, Wp: int, ws: int, shift: int, device=None) -> torch.Tensor:
@@ -105,8 +115,8 @@ class WindowAttention(nn.Module):
         qkv = self.qkv(x).reshape(Bn, N, 3, H, C // H).permute(2, 0, 3, 1, 4)
         q, k, v = qkv[0] * self.scale, qkv[1], qkv[2]
         attn = torch.matmul(q, k.transpose(-1, -2)).float()
-        idx = self.index if ws == self.window_size else torch.from_numpy(
-            relative_position_index(ws, self.window_size)).to(x.device)
+        idx = (self.index if ws == self.window_size
+               else clamped_position_index(ws, self.window_size, x.device))
         bias = self.relative_position_bias_table[idx.reshape(-1)].reshape(N, N, H)
         attn = attn + bias.permute(2, 0, 1)[None].float()
         if mask is not None:

@@ -27,10 +27,11 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..ops.render import dynamic_mask_render, render_twin
+from ..ops.render import dynamic_mask_render, render_twin  # noqa: F401  (see hand_kernel)
 from ..ops.resize import resize_bilinear
-from .layers import (MLP, Conv2dF32, ConvNorm, LayerNorm, gen_sineembed_for_position,
-                     inverse_sigmoid, position_embedding_sine)
+from .graphs import hand_kernel
+from .layers import (MLP, Conv2dF32, ConvNorm, LayerNorm, device_constant,
+                     gen_sineembed_for_position, inverse_sigmoid, position_embedding_sine)
 
 NEG_INF = -1e9
 
@@ -238,8 +239,7 @@ class MultiScaleMaskedTransformerDecoder(nn.Module):
         Q = reference_points.shape[1]
         ch, stride = self.ch, self.stride
         dtype = mask_feat.dtype
-        scale = torch.tensor([Wm * stride, Hm * stride], dtype=torch.float32,
-                             device=mask_feat.device)
+        scale = device_constant((Wm * stride, Hm * stride), mask_feat.device)
         inst_xy = reference_points[..., :2].float() * scale
         w1, w2, w3, b1, b2, b3 = torch.split(params, self.split_sizes, -1)
         w1 = w1.reshape(B, Q, ch, -1)
@@ -252,7 +252,7 @@ class MultiScaleMaskedTransformerDecoder(nn.Module):
         # compute dtype, as the JAX train graph does (transformer_decoder.py:
         # 398-400, 436-443); eval takes K3, which computes in f32
         mask_logits = (render_twin(*args, dtype=dtype) if self.training else
-                       dynamic_mask_render(*args, impl=impl))
+                       hand_kernel(__name__, "dynamic_mask_render", *args, impl=impl))
         mask_logits = mask_logits.reshape(B, Q, Hm, Wm).to(dtype)
 
         attn = resize_bilinear(mask_logits, attn_size)

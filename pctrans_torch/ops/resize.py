@@ -11,6 +11,7 @@ in both directions (the FPN upsample and the attention-mask downsample).
 
 from __future__ import annotations
 
+import functools
 from typing import Tuple
 
 import torch
@@ -32,6 +33,16 @@ def resize_nearest_torch(x: torch.Tensor, size: Tuple[int, int]) -> torch.Tensor
     out_h, out_w = size
     if H % out_h == 0 and W % out_w == 0:
         return x[..., ::H // out_h, ::W // out_w]
-    rows = torch.floor(torch.arange(out_h, dtype=torch.float32) * (H / out_h)).long()
-    cols = torch.floor(torch.arange(out_w, dtype=torch.float32) * (W / out_w)).long()
-    return x[..., rows.to(x.device)[:, None], cols.to(x.device)[None, :]]
+    rows, cols = nearest_index(H, out_h, x.device), nearest_index(W, out_w, x.device)
+    return x[..., rows[:, None], cols[None, :]]
+
+
+@functools.lru_cache(maxsize=None)
+def nearest_index(n_in: int, n_out: int, device: torch.device) -> torch.Tensor:
+    """``floor(arange(n_out) * n_in / n_out)`` in f32 on ``device``, built
+    once per (sizes, device) and shared, so read-only: built on every call
+    it would be a host-to-device copy.  Made outside inference mode, so
+    that a train step may save it for backward."""
+    with torch.inference_mode(False):
+        idx = torch.floor(torch.arange(n_out, dtype=torch.float32) * (n_in / n_out)).long()
+        return idx.to(device)
