@@ -83,13 +83,15 @@ Phases:
   9. the Swin-T PCTrans (the CVPPP recipe with ``MODEL.BACKBONE.NAME
      D2SwinTransformer``: embed 96, depths 2/2/6/2, heads 3/6/12/24,
      window 7, drop path 0.3) at full width: the f32 forward kernels vs
-     twins; the bf16 evaluator over three batches of four 530x500 scenes
-     (K1 = 6, K3 = 10, K4 = 1 per forward; labels against the numpy oracle)
-     with K1 gated and timed on its own inputs; 1 + 3 bf16 train steps at
-     448x448 batch 2 with drop path on (K1 = K2 = 6 per step) with K2 gated
-     on one step's own inputs; then ``main_torch.py --opts
-     MODEL.BACKBONE.NAME D2SwinTransformer`` (2 iterations, a checkpoint at
-     2) and ``eval_torch.py`` over that checkpoint;
+     twins (the attention's twin: K6 is bf16 only); the bf16 evaluator over
+     three batches of four 530x500 scenes (K1 = 6, K3 = 10, K4 = 1, K6 =
+     12 per forward; labels against the numpy oracle) with K1 and K6 (the
+     fused window attention, within 2^-9 rel-Fro of its twin) gated and
+     timed on their own inputs; 1 + 3 bf16 train steps at 448x448 batch 2
+     with drop path on (K1 = K2 = 6 per step, K6 = 0) with K2 gated on one
+     step's own inputs; then ``main_torch.py --opts MODEL.BACKBONE.NAME
+     D2SwinTransformer`` (2 iterations, a checkpoint at 2; K6 = 0) and
+     ``eval_torch.py`` over that checkpoint (K6 = 12 per forward);
   9b. the other components at the recipe's width, each with its f32
      forward kernels vs twins and one bf16 eval batch of four 530x500
      scenes (labels against the numpy oracle): R-50 + ``fpn_legacy_swap``
@@ -213,6 +215,7 @@ CRITERION_RTOL = 1e-4          # each loss and the matched cost, card against CP
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOP_PER_S = 67e12
 PEAK_TF32_FLOP_PER_S = 495e12
+PEAK_BF16_FLOP_PER_S = 989e12
 
 
 def card_line() -> str:
@@ -453,6 +456,52 @@ def time_on_model_inputs(name, kernel, twin, kernel_name, calls, tol) -> dict:
 
 K5_BF16_TOL = 1e-4
 K5_KERNEL = "msdeform_sep_kernel"
+# K6 and its twin round the same f32 values to bf16 at three places (S, P,
+# the output) after sums in other orders: their gap stays under half a bf16
+# step at the output's scale (tests/test_torch_window_attn_cuda.py)
+K6_TWIN_GAP = 2.0 ** -9
+K6_KERNEL = "window_attn_kernel"
+
+
+def window_attn_work(args, out):
+    """(bytes, FLOP) of one K6 call: q, k, v and the f32 table read once,
+    the output written once; the two products, 2 N^2 x 32 multiply-adds per
+    window and head."""
+    qkv, table, heads = args[0], args[1], args[2]
+    windows, n = qkv.shape[0], qkv.shape[1]
+    return nbytes(qkv, out) + table.numel() * 4, 4 * n * n * 32 * windows * heads
+
+
+def gate_window_attention(name, calls) -> dict:
+    """K6 on the arguments of ``calls``, the window attentions of one bf16
+    eval forward: each against its twin (rel-Fro <= ``K6_TWIN_GAP``), then
+    ms per launch (call and device) beside the twin's, and the bound on
+    those inputs (bytes at HBM's rate or the products at the bf16 tensor
+    cores' dense peak, the larger)."""
+    from pctrans_torch.ops.window_attn import window_attention
+
+    n = len(calls)
+    outs = [window_attention(*a) for a in calls]
+    twins = [window_attention(*a, impl="twin") for a in calls]
+    errs = [rel_fro(o.float(), t.float()) for o, t in zip(outs, twins)]
+    print(f"{name} on the inputs of the bf16 eval forward's {n} blocks (windows "
+          + " ".join(f"{a[3]}" for a in calls) + "): rel-Fro to the twin "
+          + " ".join(f"{e:.2e}" for e in errs) + f" (<= {K6_TWIN_GAP:g})")
+    if not max(errs) <= K6_TWIN_GAP:
+        raise AssertionError(f"{name} disagrees with its twin on the model's inputs")
+    ms = time_ms(lambda: [window_attention(*a) for a in calls]) / n
+    plain = time_ms(lambda: [window_attention(*a, impl="twin") for a in calls]) / n
+    dev_ms = device_ms(lambda: [window_attention(*a) for a in calls], kernel=K6_KERNEL,
+                       launches=n) / n
+    print(f"{name} per launch: kernel {ms:.4f} ms/call ({dev_ms:.4f} ms device), "
+          f"twin {plain:.4f} ms/call")
+    work = [window_attn_work(a, o) for a, o in zip(calls, outs)]
+    rec = bound(f"{name} per launch", sum(b for b, _ in work) / n,
+                sum(f for _, f in work) / n, dev_ms, PEAK_BF16_FLOP_PER_S, "bf16")
+    return {"max_abs_err": max(float((o.float() - t.float()).abs().max())
+                               for o, t in zip(outs, twins)),
+            "ms": ms, "plain_ms": plain, "device_ms": dev_ms, **rec, "library_ms": None,
+            "max_rel_fro": max(errs)}
 
 
 def check_separable(inputs) -> float:
@@ -944,15 +993,18 @@ def eval_run(name, ev, batches, score, layers):
     """``score(batches)`` (the evaluator's protocol) with the launch
     counters set to 0 just before and read just after: K1, K3 and K4 must
     run ``layers`` = (encoder layers, decoder layers + 1, 1) times per
-    forward, re-runs included.  Returns (launches, forwards, wall s,
-    metrics)."""
+    forward, re-runs included, and K6 none, or, where ``layers`` has a
+    fourth entry (a Swin backbone's blocks), that many times per forward.
+    Returns (launches, forwards, wall s, metrics)."""
     from pctrans_torch.ops.msdeform import ms_deform_attn
     from pctrans_torch.ops.render import dynamic_mask_render
     from pctrans_torch.ops.resize_binarize import resize_bilinear_binarize
+    from pctrans_torch.ops.window_attn import window_attention
 
     ev.predict_labels(batches[0]["image"])            # warm-up, not counted
     torch.cuda.synchronize()
-    counters = (ms_deform_attn, dynamic_mask_render, resize_bilinear_binarize)
+    counters = (ms_deform_attn, dynamic_mask_render, resize_bilinear_binarize,
+                window_attention)
     for fn in counters:
         fn.launches = 0
     ev.forwards = 0
@@ -964,13 +1016,14 @@ def eval_run(name, ev, batches, score, layers):
     fwd = ev.forwards
     n_img = sum(b["image"].shape[0] for b in batches)
     print(f"{name} over {len(batches)} batches: {fwd} forwards ({fwd - len(batches)} "
-          f"full-Q re-runs); launches K1 {launches[0]}, K3 {launches[1]}, K4 {launches[2]}; "
-          f"end to end {n_img / wall:.3f} img/s ({wall:.3f} s wall for {n_img} images)")
-    if fwd < len(batches) or launches != [n * fwd for n in layers]:
+          f"full-Q re-runs); launches K1 {launches[0]}, K3 {launches[1]}, K4 {launches[2]}, "
+          f"K6 {launches[3]}; end to end {n_img / wall:.3f} img/s ({wall:.3f} s wall for "
+          f"{n_img} images)")
+    if fwd < len(batches) or launches != [n * fwd for n in (*layers, 0)[:4]]:
         raise AssertionError(f"{name}: launch counts do not match the forwards run")
     if not all(math.isfinite(v) for v in res.values()):
         raise AssertionError(f"{name}: non-finite metrics {res}")
-    return launches, fwd, wall, res
+    return launches[:len(layers)], fwd, wall, res
 
 
 def forward_times(model, x):
@@ -985,8 +1038,11 @@ def slice_bf16(dev, card, config=None, name="bf16 CVPPP", with_k5=True):
     batches of four 530x500 scenes, batch 0's labels against the numpy
     oracle, the forward's times, K1 gated and timed on the inputs one
     forward gives it and, ``with_k5``, K5 on those of one forward under
-    ``PCTRANS_MSDA_IMPL=pallas``.  Returns (launches, K1's record, K5's)."""
+    ``PCTRANS_MSDA_IMPL=pallas``; with a Swin backbone, K6 counted (one per
+    block and forward) and gated and timed on the window attentions of one
+    forward.  Returns (launches, K1's record, K5's, K6's)."""
     import pctrans_torch.models.pixel_decoder as pixel_decoder
+    import pctrans_torch.models.swin as swin
     from pctrans_torch.config import CVPPP_RECIPE
     from pctrans_torch.engine.evaluator import Evaluator
     from pctrans_torch.inference.postprocess import instance_inference_cvppp
@@ -994,28 +1050,41 @@ def slice_bf16(dev, card, config=None, name="bf16 CVPPP", with_k5=True):
                                             ms_deform_attn_separable_twin)
 
     c = config or CVPPP_RECIPE
+    with_k6 = c.backbone_name == "D2SwinTransformer"
     model = build_model(c, dev)
     ev = Evaluator(model, top_k=50)
     batches = list(scene_batches(N_EVAL_BATCHES, SEED + 1))
     launches, fwd, wall, res = eval_run(
         f"{name} eval, batch {BATCH}, {IMAGE_HW}", ev, batches, ev.eval_cvppp,
-        (c.enc_layers, c.dec_layers + 1, 1))
+        (c.enc_layers, c.dec_layers + 1, 1) + ((sum(c.swin_depths),) if with_k6 else ()))
     print(f"SBD {res['SBD']:.4f}, |DiC| {res['absDiffFG']:.4f} "
           "(random weights: shows only that the chain ran)")
     check_labels(name, ev, batches, instance_inference_cvppp)
     x = torch.from_numpy(batches[0]["image"]).to(dev)
-    k1_calls = []
+    k1_calls, k6_calls = [], []
 
     def keep_k1_inputs(value, shapes, loc, w, impl=None):
         k1_calls.append((value, tuple(shapes), loc, w))
         return ms_deform_attn(value, shapes, loc, w, impl=impl)
 
+    window_attention = swin.window_attention
+
+    def keep_k6_inputs(*args, impl=None):
+        k6_calls.append(args)
+        return window_attention(*args, impl=impl)
+
     with torch.inference_mode():
         pixel_decoder.ms_deform_attn = keep_k1_inputs
-        out = model(x)
-        pixel_decoder.ms_deform_attn = ms_deform_attn
+        swin.window_attention = keep_k6_inputs
+        try:
+            out = model(x)
+        finally:
+            pixel_decoder.ms_deform_attn = ms_deform_attn
+            swin.window_attention = window_attention
         if len(k1_calls) != c.enc_layers:
             raise AssertionError(f"{len(k1_calls)} ms-deform calls in one forward")
+        if len(k6_calls) != (sum(c.swin_depths) if with_k6 else 0):
+            raise AssertionError(f"{len(k6_calls)} window-attention calls in one forward")
         for k in ("pred_masks", "reference_points", "query_emb", "sem_mask",
                   "mask_features"):
             if not torch.isfinite(out[k].float()).all():
@@ -1028,6 +1097,7 @@ def slice_bf16(dev, card, config=None, name="bf16 CVPPP", with_k5=True):
             f"K1 ({name})", ms_deform_attn, lambda *a: ms_deform_attn(*a, impl="twin"),
             "msdeform_fwd_kernel", k1_calls, 1e-2)
         k5_model = None
+        k6_model = gate_window_attention(f"K6 ({name})", k6_calls) if with_k6 else None
     if with_k5:
         # the same forward under PCTRANS_MSDA_IMPL=pallas: K5's inputs
         k5_calls = []
@@ -1050,7 +1120,7 @@ def slice_bf16(dev, card, config=None, name="bf16 CVPPP", with_k5=True):
           f"idle); end to end {N_EVAL_BATCHES * BATCH / wall:.3f} img/s "
           f"({wall:.3f} s wall for {N_EVAL_BATCHES * BATCH} images, {fwd} forwards, "
           f"device postprocess included) on {card}")
-    return launches, k1_model, k5_model
+    return launches, k1_model, k5_model, k6_model
 
 
 def slice_bbbc(dev, card):
@@ -1708,18 +1778,25 @@ def swin_recipe():
 
 def swin_phase(dev, card):
     """Phase 9: the Swin-T PCTrans at the CVPPP recipe's full width: the f32
-    forward kernels vs twins, the bf16 evaluator (K1 timed on its own
-    inputs), 1 + 3 bf16 train steps with drop path on (K2 gated on one
-    step's own inputs).  Returns (eval launches, K1 record, train launches,
-    K2 record)."""
+    forward kernels vs twins (its backbone builds the attention's twin: K6
+    is bf16 only), the bf16 evaluator (K1 and K6 gated and timed on their
+    own inputs; K6 = 12 per forward), 1 + 3 bf16 train steps with drop path
+    on (K2 gated on one step's own inputs; K6 = 0: training runs the twin).
+    Returns (eval launches, K1 record, train launches, K2 record, K6
+    record)."""
+    from pctrans_torch.ops.window_attn import window_attention
+
     config = swin_recipe()
     slice_f32(dev, config, "Swin-T f32 slice")
-    eval_launches, k1_model, _ = slice_bf16(dev, card, config, "bf16 Swin-T CVPPP",
-                                            with_k5=False)
+    eval_launches, k1_model, _, k6_model = slice_bf16(dev, card, config,
+                                                      "bf16 Swin-T CVPPP", with_k5=False)
+    window_attention.launches = 0
     train_launches, k2_model = train_bf16(dev, card, config, SWIN_TRAIN_STEPS,
                                           "bf16 Swin-T train (drop path 0.3)")
+    if window_attention.launches:
+        raise AssertionError(f"K6 ran {window_attention.launches} times in Swin-T training")
     torch.cuda.empty_cache()
-    return eval_launches, k1_model, train_launches, k2_model
+    return eval_launches, k1_model, train_launches, k2_model, k6_model
 
 
 def swap_kernels_on_model_inputs(model, x, name) -> dict:
@@ -1852,17 +1929,19 @@ def entry_points_swin(card):
     DATASET.DATA_TYPE synthetic ...`` with the CVPPP YAMLs: 2 bf16
     iterations at 448x448 batch 2 and a checkpoint at 2, then
     ``scripts/eval_torch.py`` over it.  Returns the run's launches (K1, K2,
-    K3, K4) and the sweep's (K1, K3, K4)."""
+    K3, K4, K6) and the sweep's (K1, K3, K4, K6): K6 serves every block of
+    the sweep's forwards and none of the training."""
     from pctrans_torch.ops.msdeform import ms_deform_attn, ms_deform_attn_backward
     from pctrans_torch.ops.render import dynamic_mask_render
     from pctrans_torch.ops.resize_binarize import resize_bilinear_binarize
+    from pctrans_torch.ops.window_attn import window_attention
 
     sys.path.insert(0, str(REPO / "scripts"))
     import eval_torch
     import main_torch
 
     counters = (ms_deform_attn, ms_deform_attn_backward, dynamic_mask_render,
-                resize_bilinear_binarize)
+                resize_bilinear_binarize, window_attention)
     it = SWIN_ENTRY_ITERS
     (REPO / "build").mkdir(exist_ok=True)
     with tempfile.TemporaryDirectory(dir=REPO / "build") as tmp:
@@ -1883,9 +1962,9 @@ def entry_points_swin(card):
         print(f"main_torch.py --opts MODEL.BACKBONE.NAME D2SwinTransformer, {it} bf16 "
               f"iterations of {trainer.cfg.SOLVER.SAMPLES_PER_BATCH}x"
               f"{trainer.cfg.MODEL.INPUT_SIZE}: launches K1 {run[0]}, K2 {run[1]}, K3 "
-              f"{run[2]}, K4 {run[3]}; wall {train_wall:.3f} s, on {card}")
+              f"{run[2]}, K4 {run[3]}, K6 {run[4]}; wall {train_wall:.3f} s, on {card}")
         if type(trainer.model.backbone).__name__ != "SwinTransformer" or \
-                run != [c.enc_layers * it, c.enc_layers * it, 0, 0]:
+                run != [c.enc_layers * it, c.enc_layers * it, 0, 0, 0]:
             raise AssertionError("the Swin-T entry-point run is not the configured one")
         lines = [json.loads(l) for l in Path(tmp, "metrics.jsonl").read_text().splitlines()]
         saved = sorted(f for f in os.listdir(tmp) if f.endswith(".pth.tar"))
@@ -1899,15 +1978,17 @@ def entry_points_swin(card):
         t0 = time.perf_counter()
         records = eval_torch.main(cfg_args + ["--start", "0", "--opts", *opts])
         sweep_wall = time.perf_counter() - t0
-        k1, k2, k3, k4 = [fn.launches for fn in counters]
+        k1, k2, k3, k4, k6 = [fn.launches for fn in counters]
         print(f"eval_torch.py over the Swin-T checkpoint: {records}; launches K1 {k1}, K3 "
-              f"{k3}, K4 {k4} (one per forward), K2 {k2}; wall {sweep_wall:.3f} s, on {card}")
+              f"{k3}, K4 {k4} (one per forward), K6 {k6}, K2 {k2}; wall {sweep_wall:.3f} s, "
+              f"on {card}")
         if [r["iter"] for r in records] != [it] or \
                 not all(math.isfinite(v) for v in records[0].values()):
             raise AssertionError("eval_torch.py did not score the Swin-T checkpoint")
-        if k4 < 4 or [k1, k3, k2] != [c.enc_layers * k4, (c.dec_layers + 1) * k4, 0]:
+        if k4 < 4 or [k1, k3, k6, k2] != [c.enc_layers * k4, (c.dec_layers + 1) * k4,
+                                          sum(c.swin_depths) * k4, 0]:
             raise AssertionError("the Swin-T sweep's launch counts do not match its forwards")
-    return run, (k1, k3, k4)
+    return run, (k1, k3, k4, k6)
 
 
 # ------------------------------------------------------- phases 10 to 13
@@ -2947,7 +3028,7 @@ def main() -> int:
              k5_gate]
     slice_f32(dev)
     train_f32_backward(dev)
-    (k1_eval, k3, k4), k1_model, k5_model = slice_bf16(dev, card)
+    (k1_eval, k3, k4), k1_model, k5_model, _ = slice_bf16(dev, card)
     k1_gate.update(k1_model)
     k5_gate.update(k5_model)
     dtype_map_phase(dev, card)
@@ -2959,7 +3040,7 @@ def main() -> int:
     k5, phase8_train = entry_points(card, Path(ckpts.name, "CVPPP"))
     bbbc_entry = entry_points_bbbc(card, Path(ckpts.name, "BBBC"))
     settings_train, settings_eval = entry_points_settings(card)
-    swin_eval, k1_swin, swin_train, k2_swin = swin_phase(dev, card)
+    swin_eval, k1_swin, swin_train, k2_swin, k6_gate = swin_phase(dev, card)
     k1_gate.update({f"swin_{k}": v for k, v in k1_swin.items()})
     k2_gate.update({f"swin_{k}": v for k, v in k2_swin.items()})
     swin_entry, swin_sweep = entry_points_swin(card)
@@ -2995,12 +3076,13 @@ def main() -> int:
           f"K1, K3, K4 {bbbc_eval}; BBBC entry points K1, K2, K3, K4 {bbbc_entry}; "
           f"sampled point modes K1, K2 {sampled}; entry points under the other settings "
           f"K1, K2, K3, K4 {settings_train}, their SWA evaluation K1, K3, K4 "
-          f"{settings_eval}; Swin-T eval K1, K3, K4 {swin_eval}, Swin-T train K1, K2, K3 "
-          f"{swin_train}, Swin-T entry points K1, K2, K3, K4 {swin_entry}, their sweep K1, "
-          f"K3, K4 {swin_sweep}; the other combinations' eval K1, K3, K4 {alt_eval} (the "
-          "kernels line reports K1/K2 from train, K3/K4 from the CVPPP eval, K5 from the "
-          "entry-point run)")
-    launches = [k1, k2, k3, k4, k5]
+          f"{settings_eval}; Swin-T eval K1, K3, K4, K6 {swin_eval}, Swin-T train K1, K2, "
+          f"K3 {swin_train}, Swin-T entry points K1, K2, K3, K4, K6 {swin_entry}, their sweep "
+          f"K1, K3, K4, K6 {swin_sweep}; the other combinations' eval K1, K3, K4 {alt_eval} "
+          "(the kernels line reports K1/K2 from train, K3/K4 from the CVPPP eval, K5 from the "
+          "entry-point run, K6 from the Swin-T eval)")
+    launches = [k1, k2, k3, k4, k5, swin_eval[3]]
+    gates.append(k6_gate)
 
     meta = [("K1 ms_deform_attn forward", "pctrans_torch/csrc/msdeform_fwd.cu",
              "pctrans_tpu/ops/msdeform_pallas2.py:73"),
@@ -3013,7 +3095,10 @@ def main() -> int:
              "a two-call yardstick)", "pctrans_torch/csrc/resize_binarize.cu",
              "pctrans_tpu/ops/resize_pallas.py:52"),
             ("K5 ms_deform_attn_separable forward", "pctrans_torch/csrc/msdeform_separable.cu",
-             "pctrans_tpu/ops/msdeform_pallas.py:79")]
+             "pctrans_tpu/ops/msdeform_pallas.py:79"),
+            ("K6 window_attention forward (on the Swin-T eval forward's own inputs)",
+             "pctrans_torch/csrc/window_attn.cu",
+             "none: the JAX package leaves it to XLA (pctrans_tpu/models/swin.py:71-109)")]
     keys = ("max_abs_err", "ms", "plain_ms", "device_ms", "bound_ms", "bound_by",
             "library_ms")
     kernels = [{"name": n, "route": "cuda", "source": s, "replaces": r,

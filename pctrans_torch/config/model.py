@@ -39,7 +39,8 @@ class ModelConfig:
     fpn_legacy_swap: bool = False
     sem_seg_head_name: str = "MaskFormerHead"
     transformer_decoder_name: str = "MultiScaleMaskedTransformerDecoder"
-    # Swin-T (MODEL.BACKBONE.NAME D2SwinTransformer; optional MODEL.SWIN node)
+    # Swin (MODEL.BACKBONE.NAME D2SwinTransformer), Swin-T unless an optional
+    # MODEL.SWIN node (Mask2Former's, read by swin_fields) sizes it
     swin_embed_dim: int = 96
     swin_depths: Tuple[int, ...] = (2, 2, 6, 2)
     swin_num_heads: Tuple[int, ...] = (3, 6, 12, 24)
@@ -92,21 +93,48 @@ def validate(c: ModelConfig) -> None:
         raise ValueError(f"unsupported ResNet depth {c.backbone_depth}")
 
 
+# Mask2Former's MODEL.SWIN keys (``add_maskformer2_config``) that the port's
+# Swin computes at one value only, and that value
+SWIN_FIXED = {"APE": False, "PATCH_NORM": True, "PATCH_SIZE": 4, "MLP_RATIO": 4.0,
+              "QKV_BIAS": True, "QK_SCALE": None, "DROP_RATE": 0.0, "ATTN_DROP_RATE": 0.0,
+              "USE_CHECKPOINT": False, "OUT_FEATURES": ("res2", "res3", "res4", "res5")}
+# the keys that size it, and the pretraining size (read only by APE)
+SWIN_SIZES = ("EMBED_DIM", "DEPTHS", "NUM_HEADS", "WINDOW_SIZE", "DROP_PATH_RATE")
+SWIN_UNUSED = ("PRETRAIN_IMG_SIZE",)
+
+
+def swin_fields(sw) -> dict:
+    """The ModelConfig fields of a ``MODEL.SWIN`` node as Mask2Former
+    publishes it.  Raises ``ValueError``, naming the key, for a key the port
+    does not know or a value it cannot honour: an absolute position
+    embedding, no patch norm, other patch sizes or MLP ratios, no qkv bias,
+    a set qk scale, dropout, activation checkpointing, other outputs."""
+    unknown = sorted(set(sw) - set(SWIN_FIXED) - set(SWIN_SIZES) - set(SWIN_UNUSED))
+    if unknown:
+        raise ValueError(f"MODEL.SWIN.{unknown[0]}: not a key of Mask2Former's Swin node")
+    for key, honoured in SWIN_FIXED.items():
+        value = sw.get(key, honoured)
+        if isinstance(honoured, tuple):
+            same = isinstance(value, (list, tuple)) and tuple(value) == honoured
+        elif honoured is None or isinstance(honoured, bool):
+            same = value is honoured
+        else:
+            same = not isinstance(value, bool) and value == honoured
+        if not same:
+            raise ValueError(f"MODEL.SWIN.{key}={value!r}: the port's Swin computes "
+                             f"{key} {honoured!r} only")
+    return dict(swin_embed_dim=sw.EMBED_DIM, swin_depths=tuple(sw.DEPTHS),
+                swin_num_heads=tuple(sw.NUM_HEADS), swin_window_size=sw.WINDOW_SIZE,
+                swin_drop_path=sw.DROP_PATH_RATE)
+
+
 def build_model_config(cfg) -> ModelConfig:
     """ModelConfig from a YACS-style config tree (same field mapping as
     ``pctrans_tpu.models.pctrans.build_model_config``)."""
     mf = cfg.MODEL.MASK_FORMER
     sh = cfg.MODEL.SEM_SEG_HEAD
     sw = cfg.MODEL.get("SWIN", None)
-    swin_kwargs = {}
-    if sw is not None:
-        swin_kwargs = dict(
-            swin_embed_dim=sw.EMBED_DIM,
-            swin_depths=tuple(sw.DEPTHS),
-            swin_num_heads=tuple(sw.NUM_HEADS),
-            swin_window_size=sw.WINDOW_SIZE,
-            swin_drop_path=sw.DROP_PATH_RATE,
-        )
+    swin_kwargs = {} if sw is None else swin_fields(sw)
     return ModelConfig(
         hidden_dim=mf.HIDDEN_DIM,
         conv_dim=sh.CONVS_DIM,

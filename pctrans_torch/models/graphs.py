@@ -11,8 +11,9 @@ own on a submodule -- :func:`run` serves it from CUDA graphs:
 
 * The forward is captured in segments that end at each call of a
   hand-written kernel: ``ms_deform_attn`` (K1, or K5 under
-  ``PCTRANS_MSDA_IMPL=pallas``) and ``dynamic_mask_render`` (K3), which the
-  model calls through :func:`hand_kernel`.  A replay calls each of them
+  ``PCTRANS_MSDA_IMPL=pallas``), ``dynamic_mask_render`` (K3) and, in a
+  Swin backbone, ``window_attention`` (K6), which the model calls through
+  :func:`hand_kernel`.  A replay calls each of them
   eagerly between its segments, looked up by its module attribute at that
   moment, so whatever wraps the attribute (a profiler range, a count of
   work, a planted fault) wraps every replayed call, and its ``.launches``

@@ -62,9 +62,11 @@ class PCTransModel(nn.Module):
         validate(config)
         c = self.config = config
         if c.backbone_name == "D2SwinTransformer":
+            # K6 computes in bf16 only: an f32 configuration's backbone runs the twin
             self.backbone = SwinTransformer(
                 c.swin_embed_dim, c.swin_depths, c.swin_num_heads, c.swin_window_size,
-                drop_path_rate=c.swin_drop_path)
+                drop_path_rate=c.swin_drop_path,
+                attention="kernel" if c.dtype == "bfloat16" else "twin")
             channels = self.backbone.channels
         else:
             self.backbone = ResNet(c.backbone_depth, c.stride_in_1x1, c.backbone_norm)
@@ -116,7 +118,7 @@ class PCTransModel(nn.Module):
         with torch.autocast(x.device.type, dtype=torch.bfloat16,
                             enabled=self.config.dtype == "bfloat16"):
             with tracing.span("model.backbone"):
-                feats = (self.backbone(x, generator)
+                feats = (self.backbone(x, generator, impl)
                          if isinstance(self.backbone, SwinTransformer) else self.backbone(x))
             with tracing.span("model.pixel_decoder"):
                 if isinstance(self.pixel_decoder, MSDeformAttnPixelDecoder):

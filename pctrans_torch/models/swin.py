@@ -1,9 +1,20 @@
 """Swin Transformer backbone (mirror of ``pctrans_tpu/models/swin.py``):
-Mask2Former's Swin-T behind ``MODEL.BACKBONE.NAME == 'D2SwinTransformer'``.
+Mask2Former's Swin behind ``MODEL.BACKBONE.NAME == 'D2SwinTransformer'``,
+sized by the ``MODEL.SWIN`` node (Swin-T by default; Swin-L is embed 192,
+depths (2, 2, 18, 2), heads (6, 12, 24, 48), window 12).
 
 Tokens are [B, L, C]; ``SwinTransformer(images [B, 3, H, W])`` returns the
 ``{"res2".."res5"}`` maps at strides 4/8/16/32, NCHW, at the widths
-``SwinTransformer.channels`` names (96/192/384/768 for Swin-T).
+``SwinTransformer.channels`` names (96/192/384/768 for Swin-T).  The
+attention between each block's qkv projection and ``proj`` is chosen
+explicitly, never by what the tensors happen to be: a train-mode forward
+runs the twin under autograd (K6 has no backward, ROADMAP D.10); an
+eval-mode forward calls K6 (``ops/window_attn.py``), which on a CUDA
+tensor raises for what it cannot take (a dtype other than bf16, heads
+other than 32 wide, a window over 12, inputs that need a gradient) and
+on a CPU tensor or with ``impl="twin"`` runs the twin; a backbone built
+with ``attention="twin"`` (an f32 configuration: K6 is bf16 only) runs
+the twin in both modes.
 
 As in the JAX package: attention logits and softmax in f32, the MLP's GELU
 is the tanh form (flax ``nn.gelu``; the original PyTorch Swin uses the erf
@@ -21,7 +32,6 @@ window at init, and the weight bridge places it at the centre.
 
 from __future__ import annotations
 
-import functools
 from typing import Dict, Optional, Sequence, Tuple
 
 import numpy as np
@@ -29,7 +39,10 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..ops.window_attn import (relative_position_index, shift_attn_mask,  # noqa: F401
+                                window_attention, window_attention_twin)
 from ..parallel import mesh
+from .graphs import hand_kernel
 from .layers import LayerNorm
 
 
@@ -48,39 +61,6 @@ def window_reverse(wins: torch.Tensor, ws: int, H: int, W: int) -> torch.Tensor:
     return x.permute(0, 1, 3, 2, 4, 5).reshape(B, H, W, C)
 
 
-def relative_position_index(ws: int, table_ws: Optional[int] = None) -> np.ndarray:
-    """[N, N] index of each token pair's offset into the bias table of a
-    ``table_ws`` window (by default ``ws``; ``swin.py:45-54``)."""
-    t = ws if table_ws is None else table_ws
-    coords = np.stack(np.meshgrid(np.arange(ws), np.arange(ws), indexing="ij"))
-    flat = coords.reshape(2, -1)
-    rel = (flat[:, :, None] - flat[:, None, :]).transpose(1, 2, 0) + (t - 1)
-    return rel[:, :, 0] * (2 * t - 1) + rel[:, :, 1]
-
-
-@functools.lru_cache(maxsize=None)
-def clamped_position_index(ws: int, table_ws: int, device: torch.device) -> torch.Tensor:
-    """:func:`relative_position_index` of a window clamped to ``ws`` on
-    ``device``, built once per (ws, table, device) and shared, so
-    read-only: built on every call it would be a host-to-device copy."""
-    with torch.inference_mode(False):
-        return torch.from_numpy(relative_position_index(ws, table_ws)).to(device)
-
-
-def shift_attn_mask(Hp: int, Wp: int, ws: int, shift: int, device=None) -> torch.Tensor:
-    """0/-100 f32 mask between the regions a cyclic shift brings into one
-    window (``swin.py:57-68``): [nW, N, N]."""
-    img = torch.zeros(Hp, Wp, dtype=torch.int32, device=device)
-    cnt = 0
-    for h in (slice(0, -ws), slice(-ws, -shift), slice(-shift, None)):
-        for w in (slice(0, -ws), slice(-ws, -shift), slice(-shift, None)):
-            img[h, w] = cnt
-            cnt += 1
-    wins = window_partition(img[None, :, :, None], ws)[..., 0]       # [nW, N]
-    differ = wins[:, None, :] != wins[:, :, None]
-    return torch.where(differ, -100.0, 0.0).float()
-
-
 def drop_path(x: torch.Tensor, rate: float, generator: Optional[torch.Generator]
               ) -> torch.Tensor:
     """Zero each sample's branch with probability ``rate``, scale the kept
@@ -93,38 +73,39 @@ def drop_path(x: torch.Tensor, rate: float, generator: Optional[torch.Generator]
     return torch.where(draw < keep, x / keep, torch.zeros((), dtype=x.dtype, device=x.device))
 
 
+ATTENTION = ("kernel", "twin")
+
+
 class WindowAttention(nn.Module):
-    """W-MSA with a relative position bias (``swin.py:71-109``)."""
+    """W-MSA with a relative position bias (``swin.py:71-109``).  Between
+    the qkv projection and ``proj``: in eval mode K6 through
+    ``graphs.hand_kernel`` (the wrapper takes the twin on a CPU tensor or
+    with ``impl="twin"``, and raises on a CUDA tensor it cannot take); in
+    train mode, or with ``kernel=False``, the twin under autograd."""
 
     def __init__(self, dim: int, window_size: int, num_heads: int,
-                 qkv_bias: bool = True, qk_scale: Optional[float] = None):
+                 qkv_bias: bool = True, qk_scale: Optional[float] = None,
+                 kernel: bool = True):
         super().__init__()
-        self.num_heads, self.window_size = num_heads, window_size
+        self.num_heads, self.window_size, self.kernel = num_heads, window_size, kernel
         self.scale = qk_scale or (dim // num_heads) ** -0.5
         self.qkv = nn.Linear(dim, 3 * dim, bias=qkv_bias)
         self.relative_position_bias_table = nn.Parameter(
             torch.zeros((2 * window_size - 1) ** 2, num_heads))
         self.proj = nn.Linear(dim, dim)
-        self.register_buffer("index", torch.from_numpy(
-            relative_position_index(window_size)), persistent=False)
 
-    def forward(self, x: torch.Tensor, ws: int,
-                mask: Optional[torch.Tensor] = None) -> torch.Tensor:
-        Bn, N, C = x.shape
-        H = self.num_heads
-        qkv = self.qkv(x).reshape(Bn, N, 3, H, C // H).permute(2, 0, 3, 1, 4)
-        q, k, v = qkv[0] * self.scale, qkv[1], qkv[2]
-        attn = torch.matmul(q, k.transpose(-1, -2)).float()
-        idx = (self.index if ws == self.window_size
-               else clamped_position_index(ws, self.window_size, x.device))
-        bias = self.relative_position_bias_table[idx.reshape(-1)].reshape(N, N, H)
-        attn = attn + bias.permute(2, 0, 1)[None].float()
-        if mask is not None:
-            nW = mask.shape[0]
-            attn = (attn.reshape(Bn // nW, nW, H, N, N) + mask[None, :, None]
-                    ).reshape(Bn, H, N, N)
-        attn = attn.softmax(-1).to(v.dtype)
-        out = torch.matmul(attn, v).transpose(1, 2).reshape(Bn, N, C)
+    def forward(self, x: torch.Tensor, ws: int, shift: int = 0,
+                grid: Tuple[int, int] = (1, 1), impl: Optional[str] = None) -> torch.Tensor:
+        """x: [B*nW, ws*ws, C], the windows of ``grid`` (nWh, nWw) per image
+        after a cyclic shift by ``shift``."""
+        qkv = self.qkv(x)
+        args = (qkv, self.relative_position_bias_table, self.num_heads, ws,
+                self.window_size, shift, grid, self.scale)
+        if self.training or not self.kernel:
+            # K6 has no backward (ROADMAP D.10): training runs the twin under autograd
+            out = window_attention_twin(*args)
+        else:
+            out = hand_kernel(__name__, "window_attention", *args, impl=impl)
         return self.proj(out)
 
 
@@ -133,15 +114,15 @@ class SwinBlock(nn.Module):
 
     def __init__(self, dim: int, num_heads: int, window_size: int = 7,
                  shift_size: int = 0, mlp_ratio: float = 4.0, qkv_bias: bool = True,
-                 qk_scale: Optional[float] = None, drop_path: float = 0.0):
+                 qk_scale: Optional[float] = None, drop_path: float = 0.0,
+                 kernel: bool = True):
         super().__init__()
         self.window_size, self.shift_size, self.drop_path = window_size, shift_size, drop_path
         self.norm1 = LayerNorm(dim)
-        self.attn = WindowAttention(dim, window_size, num_heads, qkv_bias, qk_scale)
+        self.attn = WindowAttention(dim, window_size, num_heads, qkv_bias, qk_scale, kernel)
         self.norm2 = LayerNorm(dim)
         self.mlp_fc1 = nn.Linear(dim, int(dim * mlp_ratio))
         self.mlp_fc2 = nn.Linear(int(dim * mlp_ratio), dim)
-        self._masks: Dict[tuple, torch.Tensor] = {}     # shift masks by grid
 
     def _drop(self, h: torch.Tensor, generator) -> torch.Tensor:
         if self.drop_path == 0.0 or not self.training:
@@ -149,7 +130,8 @@ class SwinBlock(nn.Module):
         return drop_path(h, self.drop_path, generator)
 
     def forward(self, x: torch.Tensor, hw: Tuple[int, int],
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+                generator: Optional[torch.Generator] = None,
+                impl: Optional[str] = None) -> torch.Tensor:
         H, W = hw
         B, L, C = x.shape
         ws, shift = self.window_size, self.shift_size
@@ -162,14 +144,10 @@ class SwinBlock(nn.Module):
         if pad_b or pad_r:
             x = F.pad(x, (0, 0, 0, pad_r, 0, pad_b))
         Hp, Wp = H + pad_b, W + pad_r
-        mask = None
         if shift > 0:
             x = torch.roll(x, (-shift, -shift), (1, 2))
-            key = (Hp, Wp, ws, shift, x.device)
-            if key not in self._masks:
-                self._masks[key] = shift_attn_mask(Hp, Wp, ws, shift, x.device)
-            mask = self._masks[key]
-        x = window_reverse(self.attn(window_partition(x, ws), ws, mask), ws, Hp, Wp)
+        x = window_reverse(self.attn(window_partition(x, ws), ws, shift,
+                                     (Hp // ws, Wp // ws), impl), ws, Hp, Wp)
         if shift > 0:
             x = torch.roll(x, (shift, shift), (1, 2))
         x = x[:, :H, :W].reshape(B, L, C)
@@ -199,15 +177,18 @@ class PatchMerging(nn.Module):
 
 class SwinTransformer(nn.Module):
     """Patch embed, four stages of Swin blocks with patch merging between
-    them, a LayerNorm per output (``swin.py:198-264``)."""
+    them, a LayerNorm per output (``swin.py:198-264``).  ``attention``:
+    ``"kernel"`` (K6 in eval mode) or ``"twin"`` (the twin in every mode)."""
 
     def __init__(self, embed_dim: int = 96, depths: Sequence[int] = (2, 2, 6, 2),
                  num_heads: Sequence[int] = (3, 6, 12, 24), window_size: int = 7,
                  mlp_ratio: float = 4.0, qkv_bias: bool = True,
                  qk_scale: Optional[float] = None, drop_path_rate: float = 0.3,
-                 patch_size: int = 4):
+                 patch_size: int = 4, attention: str = "kernel"):
         super().__init__()
-        self.patch_size = patch_size
+        if attention not in ATTENTION:
+            raise ValueError(f"SwinTransformer: attention {attention!r}, not one of {ATTENTION}")
+        self.patch_size, self.attention = patch_size, attention
         self.patch_embed = nn.Conv2d(3, embed_dim, patch_size, stride=patch_size)
         self.patch_norm = LayerNorm(embed_dim)
         dpr = np.linspace(0, drop_path_rate, sum(depths))
@@ -219,14 +200,15 @@ class SwinTransformer(nn.Module):
                 SwinBlock(dim, heads, window_size,
                           shift_size=0 if b % 2 == 0 else window_size // 2,
                           mlp_ratio=mlp_ratio, qkv_bias=qkv_bias, qk_scale=qk_scale,
-                          drop_path=float(dpr[first[i] + b]))
+                          drop_path=float(dpr[first[i] + b]),
+                          kernel=attention == "kernel")
                 for b in range(depth))
             for i, (dim, heads, depth) in enumerate(zip(dims, num_heads, depths)))
         self.downsample = nn.ModuleList(PatchMerging(d) for d in dims[:-1])
         self.out_norm = nn.ModuleList(LayerNorm(d) for d in dims)
 
-    def forward(self, images: torch.Tensor,
-                generator: Optional[torch.Generator] = None) -> Dict[str, torch.Tensor]:
+    def forward(self, images: torch.Tensor, generator: Optional[torch.Generator] = None,
+                impl: Optional[str] = None) -> Dict[str, torch.Tensor]:
         ps = self.patch_size
         H0, W0 = images.shape[-2:]
         x = F.pad(images, (0, (ps - W0 % ps) % ps, 0, (ps - H0 % ps) % ps))
@@ -237,7 +219,7 @@ class SwinTransformer(nn.Module):
         outs = {}
         for i, stage in enumerate(self.blocks):
             for block in stage:
-                x = block(x, hw, generator)
+                x = block(x, hw, generator, impl)
             y = self.out_norm[i](x)
             outs[f"res{i + 2}"] = y.transpose(1, 2).reshape(B, y.shape[-1], *hw)
             if i < len(self.downsample):

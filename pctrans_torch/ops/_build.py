@@ -54,6 +54,8 @@ _SIGNATURES = {
     # x, row_idx, row_w, col_idx, col_w, out, N, h, w, H, W, rows_per_tile,
     # logit_t, stream
     "pctrans_resize_binarize": [_P] * 6 + [_I] * 6 + [ctypes.c_float, _P],
+    # qkv, table, out, Bn, ws, C, H, table_ws, nWh, nWw, shift, scale, stream
+    "pctrans_window_attn_fwd": [_P] * 3 + [_I] * 8 + [ctypes.c_float, _P],
 }
 
 

@@ -23,10 +23,11 @@ the program makes it, and every other sync (a pageable copy, ``.item()``,
 an op that reads the card) is counted from the warning of PyTorch's sync
 debug mode, which is on while a span is open on a CUDA machine.
 
-``COUNTERS`` names every counter the program keeps: ``host_syncs``, and
-the eval forward's CUDA graphs (``models/graphs.py``): ``graph_captures``,
+``COUNTERS`` names every counter the program keeps: ``host_syncs``; the
+eval forward's CUDA graphs (``models/graphs.py``): ``graph_captures``,
 one per input shape captured, and ``graph_replays``, one per forward a
-replay served.
+replay served; and ``window_attn_kernel``, one per launch of Swin's fused
+window attention (K6, ``ops/window_attn.py``).
 
 Spans are opened from one thread, the loop's.  A counter from another
 thread goes to the innermost open span: autograd's device threads run the
@@ -48,7 +49,7 @@ import torch
 from torch.autograd import profiler as _profiler
 
 PREFIX = "pctrans."
-COUNTERS = ("host_syncs", "graph_captures", "graph_replays")
+COUNTERS = ("host_syncs", "graph_captures", "graph_replays", "window_attn_kernel")
 SYNC_WARNING = "called a synchronizing CUDA operation"
 PROTOTYPE_WARNING = "Synchronization debug mode is a prototype"   # at each mode change
 

@@ -7,6 +7,11 @@ windows with the 0/-100 mask, merge odd maps (15x19 -> 8x10) and clamp the
 window where a map is no larger than it (4x4 and 2x2; 4x5 and 2x3), where
 JAX's table has the clamped window's size and the bridge places it.  Drop
 path's rule is checked on the port alone.
+
+The same at Swin-L's shape, made small: embed 32 with heads (1, 2, 4, 8)
+keeps every head 32 wide, depths (2, 2, 18, 2), window 12, at 96x96 (a
+24x24 map in 2x2 shifted windows, then maps of 12x12, 6x6 and 3x3 that
+clamp the window) and 112x104 (28x26 padded to 36x36).
 """
 
 import jax
@@ -69,20 +74,43 @@ def test_shift_mask_equals_jax(hp, wp, ws, shift):
     assert set(np.unique(mask.numpy())) == {0.0, -100.0}
 
 
-@pytest.fixture(scope="module", params=[(64, 64), (60, 76)], ids=["64x64", "60x76"])
-def run(request):
-    hw = request.param
-    jmodel = JaxSwin(**SWIN, train=False)
+SWINL_SMALL = dict(embed_dim=32, depths=(2, 2, 18, 2), num_heads=(1, 2, 4, 8),
+                   window_size=12)
+
+
+def backbones(config, hw):
+    """The JAX backbone at ``config`` with randomized variables, the port's
+    with them loaded, and both outputs on one batch of two images."""
+    jmodel = JaxSwin(**config, train=False)
     variables = jax.jit(jmodel.init)(jax.random.key(0), jnp.zeros((1, *hw, 3)))
     variables = {c: _randomize(jax.tree_util.tree_map(np.asarray, dict(t)), c,
                                np.random.RandomState(1)) for c, t in variables.items()}
     images = np.random.RandomState(2).randn(2, *hw, 3).astype(np.float32)
     jout = jax.tree_util.tree_map(np.asarray, jax.jit(jmodel.apply)(variables, images))
-    model = SwinTransformer(**SWIN).eval()
+    model = SwinTransformer(**config).eval()
     load_flax_variables(model, variables)
     with torch.no_grad():
         tout = model(torch.from_numpy(images).permute(0, 3, 1, 2))
     return hw, variables, model, jout, tout
+
+
+@pytest.fixture(scope="module", params=[(64, 64), (60, 76)], ids=["64x64", "60x76"])
+def run(request):
+    return backbones(SWIN, request.param)
+
+
+@pytest.fixture(scope="module", params=[(96, 96), (112, 104)], ids=["96x96", "112x104"])
+def run_swinl(request):
+    return backbones(SWINL_SMALL, request.param)
+
+
+@pytest.mark.parametrize("level", ["res2", "res3", "res4", "res5"])
+def test_swinl_shape_matches_jax(run_swinl, level):
+    hw, _, model, jout, tout = run_swinl
+    ours = tout[level].permute(0, 2, 3, 1).numpy()
+    assert ours.shape == jout[level].shape
+    assert tout[level].shape[1] == model.channels[level]
+    np.testing.assert_allclose(ours, jout[level], rtol=RTOL, atol=ATOL)
 
 
 @pytest.mark.parametrize("level", ["res2", "res3", "res4", "res5"])
