@@ -22,7 +22,10 @@ Phases:
      PyTorch twins on the card (K5 in bf16 at rel-Fro 1e-4: it rounds
      hat_x as its twin does), then each one's time beside its twin's (K2
      alone, also on the contention case, and K1 also at the train shapes;
-     K5 beside K1);
+     K5 beside K1); then K7 (the masks' statistics) at the eval path's
+     four shapes (CVPPP's 50 and 100 masks at 530x500, BBBC's 160 and 300
+     at 520x696), bit-equal to its twin, timed beside it and beside an f32
+     and a bf16 ``bmm``;
   4. the f32 forward of the full-width CVPPP recipe (seeded random weights)
      through the kernels and through the twins, on one batch of four
      synthetic 530x500 scenes;
@@ -31,7 +34,8 @@ Phases:
      loss_emb + loss_sem through K1/K2 against the twin's;
   6. the bf16 CVPPP recipe as served: the evaluator, which labels through
      the device postprocess, over three batches of four scenes, with launch
-     counters showing the kernels ran (K1 = 6, K3 = 10, K4 = 1 per forward)
+     counters showing the kernels ran (K1 = 6, K3 = 10, K4 = 1 per forward;
+     K7 = 1 per forward and 1 per batch for the merged masks)
      and the end-to-end img/s; batch 0's label maps equal to the numpy
      oracle's on the same u8 masks; the device postprocess's ms per batch
      beside the oracle's; the host fetches of one ``predict_labels`` (the
@@ -216,6 +220,7 @@ PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOP_PER_S = 67e12
 PEAK_TF32_FLOP_PER_S = 495e12
 PEAK_BF16_FLOP_PER_S = 989e12
+PEAK_INT8_OP_PER_S = 1979e12
 
 
 def card_line() -> str:
@@ -819,6 +824,67 @@ def gate_resize_binarize(dev, g):
     return rec
 
 
+# K7's cases: (key prefix, batch, masks, image size): the eval path's
+# statistics of CVPPP's top 50 and full-Q 100 masks at 530x500 and BBBC's
+# top 160 and full-Q 300 at 520x696
+K7_CASES = [("", BATCH, 50, IMAGE_HW), ("k100_", BATCH, 100, IMAGE_HW),
+            ("bbbc_k160_", BBBC_BATCH, BBBC_TOP_K, BBBC_HW),
+            ("bbbc_k300_", BBBC_BATCH, 300, BBBC_HW)]
+
+
+def bf16_gram_f32(h: torch.Tensor) -> torch.Tensor:
+    """One PyTorch call: the bf16 product h h^T with an f32 output (counts
+    above 256 would round in a bf16 one)."""
+    return torch.bmm(h, h.transpose(1, 2), out_dtype=torch.float32)
+
+
+def gate_mask_stats(dev, g):
+    """K7 against its twin (the f32 ``bmm`` of the cast masks, TF32 off) on
+    0/1 masks of a density of their own each, with a peak column, at each
+    case of ``K7_CASES``: bit-equal, or fail; then each timed beside the
+    twin, its bound the larger of the u8 masks' bytes at 3.35 TB/s and the
+    i <= j pairs' u8 operations at 1,979 TOPS, and two PyTorch calls as
+    yardsticks: the f32 ``bmm`` of masks already cast (``library_ms``) and
+    a bf16 one with an f32 output (``bf16_library_ms``).  One record, the
+    later cases under their key prefixes."""
+    from pctrans_torch.ops.mask_stats import packed_mask_stats
+
+    rec = {}
+    for prefix, B, K, hw in K7_CASES:
+        density = torch.rand(1, K, 1, 1, device=dev, generator=g)
+        masks = (torch.rand(B, K, *hw, device=dev, generator=g) < density).to(torch.uint8)
+        peaks = torch.randn(B, K, device=dev, generator=g)
+        out = packed_mask_stats(masks, peaks)
+        torch.cuda.synchronize()
+        twin = packed_mask_stats(masks, peaks, impl="twin")
+        name = f"K7 [B={B}, K={K}, {hw}]"
+        err = float((out - twin).abs().max())
+        print(f"{name}: largest |K7 - twin| {err} over {out.numel()} statistics "
+              "(bit-equal required)")
+        if not torch.equal(out, twin):
+            raise AssertionError(f"{name} differs from its twin")
+        times = timed(name, lambda: packed_mask_stats(masks, peaks),
+                      lambda: packed_mask_stats(masks, peaks, impl="twin"))
+        f = masks.reshape(B, K, -1).float()
+        library = time_ms(lambda: torch.bmm(f, f.transpose(1, 2)))
+        del f
+        h = masks.reshape(B, K, -1).bfloat16()
+        bf16_library = time_ms(lambda: bf16_gram_f32(h))
+        del h
+        print(f"{name} yardsticks: f32 bmm of the cast masks {library:.4f} ms/call, bf16 "
+              f"bmm with an f32 output {bf16_library:.4f} ms/call")
+        # a multiply and an add per pixel of each pair i <= j
+        ops = B * hw[0] * hw[1] * K * (K + 1)
+        r = {"max_abs_err": err, **times,
+             **bound(name, nbytes(masks, peaks, out), ops, times["device_ms"],
+                     PEAK_INT8_OP_PER_S, "u8"),
+             "library_ms": library, "bf16_library_ms": bf16_library}
+        rec.update({f"{prefix}{k}": v for k, v in r.items()
+                    if not (prefix and k == "bound_by")})
+        del masks, out, twin
+    return rec
+
+
 # ----------------------------------------------------------------- slices
 def build_model(config, dev):
     from pctrans_torch.models import PCTransModel
@@ -994,8 +1060,11 @@ def eval_run(name, ev, batches, score, layers):
     counters set to 0 just before and read just after: K1, K3 and K4 must
     run ``layers`` = (encoder layers, decoder layers + 1, 1) times per
     forward, re-runs included, and K6 none, or, where ``layers`` has a
-    fourth entry (a Swin backbone's blocks), that many times per forward.
-    Returns (launches, forwards, wall s, metrics)."""
+    fourth entry (a Swin backbone's blocks), that many times per forward;
+    K7 once per forward and, in the CVPPP protocol, once per batch for the
+    merged masks.  Returns (launches: those of ``layers`` and K7's last,
+    forwards, wall s, metrics)."""
+    from pctrans_torch.ops.mask_stats import packed_mask_stats
     from pctrans_torch.ops.msdeform import ms_deform_attn
     from pctrans_torch.ops.render import dynamic_mask_render
     from pctrans_torch.ops.resize_binarize import resize_bilinear_binarize
@@ -1004,7 +1073,7 @@ def eval_run(name, ev, batches, score, layers):
     ev.predict_labels(batches[0]["image"])            # warm-up, not counted
     torch.cuda.synchronize()
     counters = (ms_deform_attn, dynamic_mask_render, resize_bilinear_binarize,
-                window_attention)
+                window_attention, packed_mask_stats)
     for fn in counters:
         fn.launches = 0
     ev.forwards = 0
@@ -1014,16 +1083,17 @@ def eval_run(name, ev, batches, score, layers):
     wall = time.perf_counter() - t0
     launches = [fn.launches for fn in counters]
     fwd = ev.forwards
+    k7 = fwd + (len(batches) if ev.postprocessor.dataset == "cvppp" else 0)
     n_img = sum(b["image"].shape[0] for b in batches)
     print(f"{name} over {len(batches)} batches: {fwd} forwards ({fwd - len(batches)} "
           f"full-Q re-runs); launches K1 {launches[0]}, K3 {launches[1]}, K4 {launches[2]}, "
-          f"K6 {launches[3]}; end to end {n_img / wall:.3f} img/s ({wall:.3f} s wall for "
-          f"{n_img} images)")
-    if fwd < len(batches) or launches != [n * fwd for n in (*layers, 0)[:4]]:
+          f"K6 {launches[3]}, K7 {launches[4]}; end to end {n_img / wall:.3f} img/s "
+          f"({wall:.3f} s wall for {n_img} images)")
+    if fwd < len(batches) or launches != [n * fwd for n in (*layers, 0)[:4]] + [k7]:
         raise AssertionError(f"{name}: launch counts do not match the forwards run")
     if not all(math.isfinite(v) for v in res.values()):
         raise AssertionError(f"{name}: non-finite metrics {res}")
-    return launches[:len(layers)], fwd, wall, res
+    return launches[:len(layers)] + launches[4:], fwd, wall, res
 
 
 def forward_times(model, x):
@@ -1040,7 +1110,8 @@ def slice_bf16(dev, card, config=None, name="bf16 CVPPP", with_k5=True):
     forward gives it and, ``with_k5``, K5 on those of one forward under
     ``PCTRANS_MSDA_IMPL=pallas``; with a Swin backbone, K6 counted (one per
     block and forward) and gated and timed on the window attentions of one
-    forward.  Returns (launches, K1's record, K5's, K6's)."""
+    forward.  Returns (launches (``eval_run``'s: K7's last), K1's record,
+    K5's, K6's)."""
     import pctrans_torch.models.pixel_decoder as pixel_decoder
     import pctrans_torch.models.swin as swin
     from pctrans_torch.config import CVPPP_RECIPE
@@ -3026,9 +3097,10 @@ def main() -> int:
     k1_gate.update(k1_train)
     gates = [k1_gate, k2_gate, gate_render(dev, g), gate_resize_binarize(dev, g),
              k5_gate]
+    k7_gate = gate_mask_stats(dev, g)
     slice_f32(dev)
     train_f32_backward(dev)
-    (k1_eval, k3, k4), k1_model, k5_model, _ = slice_bf16(dev, card)
+    (k1_eval, k3, k4, k7), k1_model, k5_model, _ = slice_bf16(dev, card)
     k1_gate.update(k1_model)
     k5_gate.update(k5_model)
     dtype_map_phase(dev, card)
@@ -3072,17 +3144,17 @@ def main() -> int:
     for gate, n in zip((gates[0], gates[2], gates[3]), pipelined):
         gate["pipeline_launches"] = n
     print(f"main paths: train K1 {k1}, K2 {k2}; eval K1 {k1_eval}, K3 {k3}, "
-          f"K4 {k4}; entry points under PCTRANS_MSDA_IMPL=pallas K5 {k5}; BBBC eval "
-          f"K1, K3, K4 {bbbc_eval}; BBBC entry points K1, K2, K3, K4 {bbbc_entry}; "
+          f"K4 {k4}, K7 {k7}; entry points under PCTRANS_MSDA_IMPL=pallas K5 {k5}; BBBC eval "
+          f"K1, K3, K4, K7 {bbbc_eval}; BBBC entry points K1, K2, K3, K4 {bbbc_entry}; "
           f"sampled point modes K1, K2 {sampled}; entry points under the other settings "
           f"K1, K2, K3, K4 {settings_train}, their SWA evaluation K1, K3, K4 "
-          f"{settings_eval}; Swin-T eval K1, K3, K4, K6 {swin_eval}, Swin-T train K1, K2, "
+          f"{settings_eval}; Swin-T eval K1, K3, K4, K6, K7 {swin_eval}, Swin-T train K1, K2, "
           f"K3 {swin_train}, Swin-T entry points K1, K2, K3, K4, K6 {swin_entry}, their sweep "
-          f"K1, K3, K4, K6 {swin_sweep}; the other combinations' eval K1, K3, K4 {alt_eval} "
-          "(the kernels line reports K1/K2 from train, K3/K4 from the CVPPP eval, K5 from the "
-          "entry-point run, K6 from the Swin-T eval)")
-    launches = [k1, k2, k3, k4, k5, swin_eval[3]]
-    gates.append(k6_gate)
+          f"K1, K3, K4, K6 {swin_sweep}; the other combinations' eval K1, K3, K4, K7 {alt_eval} "
+          "(the kernels line reports K1/K2 from train, K3/K4/K7 from the CVPPP eval, K5 from "
+          "the entry-point run, K6 from the Swin-T eval)")
+    launches = [k1, k2, k3, k4, k5, swin_eval[3], k7]
+    gates += [k6_gate, k7_gate]
 
     meta = [("K1 ms_deform_attn forward", "pctrans_torch/csrc/msdeform_fwd.cu",
              "pctrans_tpu/ops/msdeform_pallas2.py:73"),
@@ -3098,7 +3170,11 @@ def main() -> int:
              "pctrans_tpu/ops/msdeform_pallas.py:79"),
             ("K6 window_attention forward (on the Swin-T eval forward's own inputs)",
              "pctrans_torch/csrc/window_attn.cu",
-             "none: the JAX package leaves it to XLA (pctrans_tpu/models/swin.py:71-109)")]
+             "none: the JAX package leaves it to XLA (pctrans_tpu/models/swin.py:71-109)"),
+            ("K7 packed_mask_stats (library_ms: the f32 bmm of the cast masks; "
+             "bf16_library_ms: a bf16 bmm with an f32 output)", "pctrans_torch/csrc/mask_stats.cu",
+             "none: the JAX package leaves it to XLA "
+             "(pctrans_tpu/inference/device_postprocess.py:62-69)")]
     keys = ("max_abs_err", "ms", "plain_ms", "device_ms", "bound_ms", "bound_by",
             "library_ms")
     kernels = [{"name": n, "route": "cuda", "source": s, "replaces": r,

@@ -7,8 +7,8 @@ the ``top_k`` queries with the highest peak logit, and upsamples and
 binarizes them at the input size in one K4 launch:
 ``(masks_u8 [B, K, H, W], peaks [B, K] f32)``.  With ``with_stats`` the
 same call also computes the masks' areas, K x K intersections and peak
-logits on the device, packed into one f32 array (``device_postprocess.
-packed_mask_stats``): ``(masks_u8, stats [B, K, K+2])``.
+logits on the device, packed into one f32 array (K7,
+``ops/mask_stats.packed_mask_stats``): ``(masks_u8, stats [B, K, K+2])``.
 
 The top-k filter is exact while at most K queries clear the threshold:
 bilinear upsampling is a convex combination, so a query's upsampled peak
@@ -24,8 +24,8 @@ from typing import Callable, Optional, Tuple
 
 import torch
 
-from ..inference.device_postprocess import packed_mask_stats
 from ..models import PCTransModel
+from ..ops.mask_stats import packed_mask_stats
 from ..ops.resize_binarize import resize_bilinear_binarize
 
 

@@ -4,9 +4,10 @@
 Every pixel-scale step runs where the binarized masks are; only
 statistics cross to the host:
 
-* device: per-mask areas and the K x K intersections (one batched matmul),
-  the cluster mean-merge (a membership matmul), CVPPP's re-binarize and
-  the merged masks' statistics, and the ascending-area argmax paint;
+* device: per-mask areas and the K x K intersections (K7,
+  ``ops/mask_stats.py``), the cluster mean-merge (a membership matmul),
+  CVPPP's re-binarize and the merged masks' statistics, and the
+  ascending-area argmax paint;
 * host: the greedy dice clustering and MMI-NMS on [K] / [K, K] arrays,
   the same code as the numpy oracle (``postprocess.clusters_from_dice``,
   ``postprocess.nms_keep``).
@@ -15,11 +16,16 @@ Host <-> device traffic per batch: the packed [B, K, K+1(+1)] statistics
 down, [B, K, K] membership (and [B, K] paint order) up, CVPPP's merged
 statistics down, the [B, H, W] int16 label map down.
 
-Exactness: the matmuls take 0/1 operands in f32 (exact under TF32 too)
-and accumulate in f32, so areas, intersections and member counts are the
-true integers (all below 2^24; a bf16 or f16 product would round counts
-above 256 or 2048).  Merged values are fl(count / n) in f32, bit-equal to
-numpy's ``mean`` over the members, so every threshold compare matches
+Exactness: areas, intersections and member counts are the true integers
+(all below 2^24).  On the card K7 multiplies the u8 0/1 masks as u8 on the
+tensor cores with i32 sums, exact in any order (its partial sums meet in
+i32 atomics), and takes each area from the product's diagonal (m . m =
+sum m for 0/1 masks); the counts reach the host as f32, exact below 2^24.
+On the CPU, and in the membership matmul on either, the matmuls take 0/1
+operands in f32 (exact under TF32 too) and accumulate in f32 (a bf16 or
+f16 output would round counts above 256 or 2048).  Merged values are
+fl(count / n) in f32, bit-equal to numpy's ``mean`` over the members, so
+every threshold compare matches
 ``postprocess.instance_inference_cvppp`` / ``_bbbc``.  The one documented
 difference: BBBC's paint order uses the exact rational cluster area (the
 sum of member areas / n, in f64) where numpy sums H*W f32 values pairwise;
@@ -36,6 +42,7 @@ from typing import Iterable, List, Optional
 import numpy as np
 import torch
 
+from ..ops.mask_stats import packed_mask_stats
 from ..utils import tracing
 from .postprocess import clusters_from_dice, dice_from_stats, nms_keep
 
@@ -43,34 +50,8 @@ CLUSTER_THRESHOLDS = {"cvppp": (0.5, 0.6), "bbbc": (0.15, 0.25)}   # (dice, merg
 
 
 # ---------------------------------------------------------------- device ops
-# Every matmul below takes 0/1 operands in f32 and accumulates in f32: the
-# counts are exact integers below 2^24.
-
-
-def mask_stats(masks: torch.Tensor):
-    """[B, K, H, W] binary (any dtype) -> (areas [B, K] i32, inter [B, K, K]
-    i32)."""
-    flat = masks.reshape(masks.shape[0], masks.shape[1], -1)
-    f = flat.float()
-    inter = torch.bmm(f, f.transpose(1, 2)).int()
-    areas = flat.sum(dim=-1, dtype=torch.int32)
-    return areas, inter
-
-
-def packed_mask_stats(masks: torch.Tensor,
-                      extra: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Mask statistics in one f32 array [B, K, K+1(+1)]: ``[..., :K]`` the
-    intersections, ``[..., K]`` the areas, ``[..., K+1]`` the optional
-    per-mask ``extra`` (the peak logits), so one host fetch carries them."""
-    areas, inter = mask_stats(masks)
-    cols = [inter.float(), areas[:, :, None].float()]
-    if extra is not None:
-        cols.append(extra[:, :, None].float())
-    return torch.cat(cols, dim=-1)
-
-
 def unpack_mask_stats(stats: np.ndarray):
-    """Host-side inverse of :func:`packed_mask_stats` -> (areas, inter[,
+    """Host-side inverse of ``packed_mask_stats`` -> (areas, inter[,
     extra]) as f32 views."""
     K = stats.shape[1]
     if stats.shape[-1] > K + 1:
@@ -78,6 +59,8 @@ def unpack_mask_stats(stats: np.ndarray):
     return stats[:, :, K], stats[:, :, :K]
 
 
+# 0/1 operands in f32 with an f32 accumulator: the member counts are exact
+# integers below 2^24
 def _merge_fractions(masks: torch.Tensor, member: torch.Tensor,
                      nmem: torch.Tensor) -> torch.Tensor:
     """Mean of each cluster's members: [B, C, H*W] f32, count / n divided

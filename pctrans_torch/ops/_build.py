@@ -56,6 +56,9 @@ _SIGNATURES = {
     "pctrans_resize_binarize": [_P] * 6 + [_I] * 6 + [ctypes.c_float, _P],
     # qkv, table, out, Bn, ws, C, H, table_ws, nWh, nWw, shift, scale, stream
     "pctrans_window_attn_fwd": [_P] * 3 + [_I] * 8 + [ctypes.c_float, _P],
+    # masks, extra (or NULL), ws, out, B, K, P, tiles, chunks,
+    # stages_per_chunk, stream
+    "pctrans_mask_stats": [_P] * 4 + [_I, _I, ctypes.c_longlong] + [_I] * 3 + [_P],
 }
 
 

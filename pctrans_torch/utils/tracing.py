@@ -26,8 +26,9 @@ debug mode, which is on while a span is open on a CUDA machine.
 ``COUNTERS`` names every counter the program keeps: ``host_syncs``; the
 eval forward's CUDA graphs (``models/graphs.py``): ``graph_captures``,
 one per input shape captured, and ``graph_replays``, one per forward a
-replay served; and ``window_attn_kernel``, one per launch of Swin's fused
-window attention (K6, ``ops/window_attn.py``).
+replay served; ``window_attn_kernel``, one per launch of Swin's fused
+window attention (K6, ``ops/window_attn.py``); and ``mask_stats_kernel``,
+one per launch of the masks' statistics (K7, ``ops/mask_stats.py``).
 
 Spans are opened from one thread, the loop's.  A counter from another
 thread goes to the innermost open span: autograd's device threads run the
@@ -49,7 +50,8 @@ import torch
 from torch.autograd import profiler as _profiler
 
 PREFIX = "pctrans."
-COUNTERS = ("host_syncs", "graph_captures", "graph_replays", "window_attn_kernel")
+COUNTERS = ("host_syncs", "graph_captures", "graph_replays", "window_attn_kernel",
+            "mask_stats_kernel")
 SYNC_WARNING = "called a synchronizing CUDA operation"
 PROTOTYPE_WARNING = "Synchronization debug mode is a prototype"   # at each mode change
 

@@ -14,6 +14,7 @@ from pctrans_torch.data.synthetic import make_blob_image
 from pctrans_torch.inference import device_postprocess as dp
 from pctrans_torch.inference.postprocess import (instance_inference_bbbc,
                                                  instance_inference_cvppp)
+from pctrans_torch.ops.mask_stats import mask_stats_twin
 from pctrans_tpu.inference import device_postprocess as jax_dp
 
 torch.set_num_threads(1)
@@ -45,7 +46,7 @@ def _fake_probs(rng, Q=24, H=96, W=80, dup=3, noise=0.15, rest=0.3):
 def _labels_three_ways(dataset, probs):
     """(port device path, JAX device path, port numpy oracle) label maps."""
     masks = (probs > THRESHOLD[dataset]).astype(np.uint8)
-    areas, inter = (t.numpy() for t in dp.mask_stats(torch.from_numpy(masks)))
+    areas, inter = (t.numpy() for t in mask_stats_twin(torch.from_numpy(masks)))
     ours = dp.DevicePostprocessor(dataset)(torch.from_numpy(masks), areas, inter)
     j_areas, j_inter = (np.asarray(a) for a in jax_dp._stats(jnp.asarray(masks)))
     ref = jax_dp.DevicePostprocessor(dataset)(jnp.asarray(masks), j_areas, j_inter)
@@ -161,7 +162,7 @@ def test_packed_stats_are_exact_integers_above_2048_and_equal_jax(seed):
     ref = np.asarray(jax_dp.packed_mask_stats(jnp.asarray(masks), jnp.asarray(extra)))
     assert ours.dtype == ref.dtype == np.float32
     np.testing.assert_array_equal(ours, ref)
-    a, i = dp.mask_stats(torch.from_numpy(masks))
+    a, i = mask_stats_twin(torch.from_numpy(masks))
     assert a.dtype == i.dtype == torch.int32
     np.testing.assert_array_equal(a.numpy(), areas.astype(np.int32))
 
