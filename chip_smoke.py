@@ -12,8 +12,8 @@ Phases:
   2. build the CUDA kernels from pctrans_torch/csrc (one nvcc per source,
      all at once);
   3. kernel gates: K1 (ms-deform forward) and K5 (its separable form) at
-     the eval shapes, K5 also against K1 and at the entry-point run's train
-     and validation shapes (448x448 levels, batch 2 and 4), K2 (ms-deform
+     the eval shapes, K5 also against K1 and at phase 8's train and
+     validation shapes (448x448 levels, batch 2 and 4), K2 (ms-deform
      backward) at the train shapes with a share of samples on integral
      pixel coordinates and on a contention case (every query of a head in
      the same 2x2 cells of the 14x14 level), K3 (mask render) and K4
@@ -27,8 +27,8 @@ Phases:
      at 520x696), bit-equal to its twin, timed beside it and beside an f32
      and a bf16 ``bmm``;
   4. the f32 forward of the full-width CVPPP recipe (seeded random weights)
-     through the kernels and through the twins, on one batch of four
-     synthetic 530x500 scenes;
+     through the kernels and through the twins (inside ``_build.twins()``),
+     on one batch of four synthetic 530x500 scenes;
   5. the f32 train backward of the recipe (SyncBN heads in train mode) on
      two synthetic 448x448 scenes: the pixel decoder's gradients of
      loss_emb + loss_sem through K1/K2 against the twin's;
@@ -41,7 +41,7 @@ Phases:
      beside the oracle's; the host fetches of one ``predict_labels`` (the
      statistics and the label map, no mask stack); then K1 gated and timed
      on the value, locations and weights one bf16 forward gives it, and K5
-     on those of one bf16 forward under ``PCTRANS_MSDA_IMPL=pallas``; then
+     (``ms_deform_attn_separable``, which no path calls) on the same; then
      the recipe's dtype map (every module's output dtypes, eval and train
      mode, at 64x64) on the card against a CPU copy: equal, or the phase
      fails;
@@ -68,10 +68,9 @@ Phases:
      loss and each lane's matched cost within rel 1e-4;
   8. the entry points as users run them: ``scripts/main_torch.py`` with the
      two CVPPP YAMLs on synthetic data (4 bf16 iterations at 448x448 batch
-     2, checkpoints at 2 and 4, validation at 4) under
-     ``PCTRANS_MSDA_IMPL=pallas`` (K5 = 6 per forward, K1 = 0, K2 = 6 per
-     step), then ``scripts/eval_torch.py`` sweeping the two checkpoints
-     under the default dispatch (K1 = 6, K3 = 10, K4 = 1 per forward); then
+     2, checkpoints at 2 and 4, validation at 4; K1 = 6 per forward, K2 =
+     6 per step, K5 = 0), then ``scripts/eval_torch.py`` sweeping the two
+     checkpoints (K1 = 6, K3 = 10, K4 = 1 per forward); then
      ``main_torch.py`` with the two BBBC YAMLs on ``synthetic_bbbc`` (2
      bf16 iterations at 512x512 batch 2, MAX_INSTANCES 128, a checkpoint
      and a validation at 2 that runs ``test_bbbc``, writes AJI to
@@ -87,7 +86,7 @@ Phases:
   9. the Swin-T PCTrans (the CVPPP recipe with ``MODEL.BACKBONE.NAME
      D2SwinTransformer``: embed 96, depths 2/2/6/2, heads 3/6/12/24,
      window 7, drop path 0.3) at full width: the f32 forward kernels vs
-     twins (the attention's twin: K6 is bf16 only); the bf16 evaluator over
+     twins as in phase 4 (the attention's twin: K6 is bf16 only); the bf16 evaluator over
      three batches of four 530x500 scenes (K1 = 6, K3 = 10, K4 = 1, K6 =
      12 per forward; labels against the numpy oracle) with K1 and K6 (the
      fused window attention, within 2^-9 rel-Fro of its twin) gated and
@@ -104,9 +103,9 @@ Phases:
      K4), R-50 + ``TransformerEncoderPixelDecoder`` +
      ``StandardTransformerDecoder`` (K4);
   10. multi-card training: (a) ``scripts/main_torch.py --distributed`` as
-     world 1 through env:// on NCCL with phase 8's arguments and
-     ``PCTRANS_MSDA_IMPL=pallas``, its per-iteration losses within rel 1e-3
-     of phase 8's and its files those of one run; (b) two gloo ranks on the
+     world 1 through env:// on NCCL with phase 8's arguments, its
+     per-iteration losses within rel 1e-3 of phase 8's (both through K1)
+     and its files those of one run; (b) two gloo ranks on the
      one card (each a ``chip_smoke.py --dist-worker`` process under a
      timeout), 1 + 2 bf16 train steps at per-rank batch 1 against one
      process at batch 2: the losses, gradient global norms and SyncBN
@@ -168,6 +167,7 @@ or in ``pctrans_torch`` imports JAX or the JAX package.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import itertools
 import json
@@ -526,7 +526,7 @@ def check_separable(inputs) -> float:
         torch.cuda.synchronize()
         twin = ms_deform_attn_separable_twin(v, shapes, loc, w)
         errs[name] = (rel_fro(out, twin),
-                      rel_fro(out, ms_deform_attn(v, shapes, loc, w, impl="pallas2")),
+                      rel_fro(out, ms_deform_attn(v, shapes, loc, w)),
                       int((out != twin).sum()))
         if name == "f32":
             worst = float((out - twin).abs().max())
@@ -543,8 +543,8 @@ def check_separable(inputs) -> float:
 
 def gate_separable(dev, g, inputs, k1):
     """K5 against its separable twin and against K1 on the K1 gate's inputs
-    (timed beside both) and at the shapes the entry-point run gives it: the
-    448x448 levels at the train batch and at the validation batch."""
+    (timed beside both) and at phase 8's shapes: the 448x448 levels at the
+    train batch and at the validation batch."""
     from pctrans_torch.ops.msdeform import (ms_deform_attn_separable,
                                             ms_deform_attn_separable_twin)
 
@@ -923,6 +923,7 @@ def slice_f32(dev, config=None, name="f32 slice"):
     each mask prediction within rel-Fro 1e-3 up to the first
     attention-mask flip."""
     from pctrans_torch.config import CVPPP_RECIPE
+    from pctrans_torch.ops import _build
 
     config = config or CVPPP_RECIPE
     model = build_model(dataclasses.replace(config, dtype="float32"), dev)
@@ -930,7 +931,8 @@ def slice_f32(dev, config=None, name="f32 slice"):
     x = torch.from_numpy(batch["image"]).to(dev)
     with torch.inference_mode():
         out = model(x)
-        ref = model(x, impl="twin")
+        with _build.twins():
+            ref = model(x)
     masks_out = out["aux_masks"] + [out["pred_masks"]]
     masks_ref = ref["aux_masks"] + [ref["pred_masks"]]
     errs = [rel_fro(a.float(), b.float()) for a, b in zip(masks_out, masks_ref)]
@@ -1107,8 +1109,8 @@ def slice_bf16(dev, card, config=None, name="bf16 CVPPP", with_k5=True):
     """The bf16 recipe (or ``config``) as served: the evaluator over three
     batches of four 530x500 scenes, batch 0's labels against the numpy
     oracle, the forward's times, K1 gated and timed on the inputs one
-    forward gives it and, ``with_k5``, K5 on those of one forward under
-    ``PCTRANS_MSDA_IMPL=pallas``; with a Swin backbone, K6 counted (one per
+    forward gives it and, ``with_k5``, K5 on the same inputs; with a Swin
+    backbone, K6 counted (one per
     block and forward) and gated and timed on the window attentions of one
     forward.  Returns (launches (``eval_run``'s: K7's last), K1's record,
     K5's, K6's)."""
@@ -1134,15 +1136,15 @@ def slice_bf16(dev, card, config=None, name="bf16 CVPPP", with_k5=True):
     x = torch.from_numpy(batches[0]["image"]).to(dev)
     k1_calls, k6_calls = [], []
 
-    def keep_k1_inputs(value, shapes, loc, w, impl=None):
+    def keep_k1_inputs(value, shapes, loc, w):
         k1_calls.append((value, tuple(shapes), loc, w))
-        return ms_deform_attn(value, shapes, loc, w, impl=impl)
+        return ms_deform_attn(value, shapes, loc, w)
 
     window_attention = swin.window_attention
 
-    def keep_k6_inputs(*args, impl=None):
+    def keep_k6_inputs(*args):
         k6_calls.append(args)
-        return window_attention(*args, impl=impl)
+        return window_attention(*args)
 
     with torch.inference_mode():
         pixel_decoder.ms_deform_attn = keep_k1_inputs
@@ -1167,25 +1169,10 @@ def slice_bf16(dev, card, config=None, name="bf16 CVPPP", with_k5=True):
         k1_model = time_on_model_inputs(
             f"K1 ({name})", ms_deform_attn, lambda *a: ms_deform_attn(*a, impl="twin"),
             "msdeform_fwd_kernel", k1_calls, 1e-2)
-        k5_model = None
+        k5_model = (time_on_model_inputs("K5", ms_deform_attn_separable,
+                                         ms_deform_attn_separable_twin, K5_KERNEL,
+                                         k1_calls, K5_BF16_TOL) if with_k5 else None)
         k6_model = gate_window_attention(f"K6 ({name})", k6_calls) if with_k6 else None
-    if with_k5:
-        # the same forward under PCTRANS_MSDA_IMPL=pallas: K5's inputs
-        k5_calls = []
-        pixel_decoder.ms_deform_attn = lambda *a, **k: k5_calls.append(
-            (a[0], tuple(a[1]), a[2], a[3])) or ms_deform_attn(*a, **k)
-        os.environ["PCTRANS_MSDA_IMPL"] = "pallas"
-        with torch.inference_mode():
-            try:
-                model(x)
-            finally:
-                del os.environ["PCTRANS_MSDA_IMPL"]
-                pixel_decoder.ms_deform_attn = ms_deform_attn
-            if len(k5_calls) != c.enc_layers:
-                raise AssertionError(f"{len(k5_calls)} ms-deform calls in one pallas forward")
-            k5_model = time_on_model_inputs("K5", ms_deform_attn_separable,
-                                            ms_deform_attn_separable_twin, K5_KERNEL,
-                                            k5_calls, K5_BF16_TOL)
     print(f"{name} forward {fwd_ms:.3f} ms/batch of {BATCH} (CUDA events), "
           f"{fwd_dev:.3f} ms of it device time ({1 - fwd_dev / fwd_ms:.1%} "
           f"idle); end to end {N_EVAL_BATCHES * BATCH / wall:.3f} img/s "
@@ -1242,6 +1229,7 @@ def train_f32_backward(dev):
     from pctrans_torch.data.targets import targets_from_labels
     from pctrans_torch.losses.criterion import SetCriterion, CVPPP_CRITERION
     from pctrans_torch.losses.discriminative import discriminative_loss
+    from pctrans_torch.ops import _build
 
     model = build_model(dataclasses.replace(CVPPP_RECIPE, dtype="float32"), dev)
     model.train()
@@ -1251,9 +1239,10 @@ def train_f32_backward(dev):
                                   MAX_INSTANCES)
     crit = SetCriterion(CVPPP_CRITERION)
 
-    def grads(impl):
+    def grads(twins):
         model.zero_grad(set_to_none=True)
-        out = model(x, impl=impl)
+        with _build.twins() if twins else contextlib.nullcontext():
+            out = model(x)
         loss = (crit.sem_loss(out["sem_mask"], targets["fg_mask"])
                 + discriminative_loss(out["mask_features"], targets["seg"],
                                       MAX_INSTANCES))
@@ -1261,8 +1250,8 @@ def train_f32_backward(dev):
         return float(loss.detach()), {n: p.grad.clone() for n, p in
                                       model.pixel_decoder.named_parameters()}
 
-    loss_k, ours = grads(None)
-    loss_t, ref = grads("twin")
+    loss_k, ours = grads(False)
+    loss_t, ref = grads(True)
     errs = {n: rel_fro(ours[n], ref[n]) for n in ref if float(ref[n].norm()) > 0}
     zero = [n for n in ref if float(ref[n].norm()) == 0]
     name, worst = max(errs.items(), key=lambda kv: kv[1])
@@ -1372,9 +1361,9 @@ def train_bf16(dev, card, config=None, n_steps=N_TRAIN_STEPS, name="bf16 train")
     return launches, time_k2_on_model_inputs(k2_calls)
 
 
-def entry_device_time(main_torch, cfg_args, opts, tmp, k5_launches, card) -> None:
+def entry_device_time(main_torch, cfg_args, opts, tmp, k1_launches, card) -> None:
     """The same ``main_torch.py`` run again, into a fresh output directory,
-    under ``torch.profiler``: the device time of the whole run and K5's
+    under ``torch.profiler``: the device time of the whole run and K1's
     share of it (kernel events the trace kept; its wall time is the
     profiler's, not the run's)."""
     from torch.profiler import ProfilerActivity, profile
@@ -1382,21 +1371,17 @@ def entry_device_time(main_torch, cfg_args, opts, tmp, k5_launches, card) -> Non
     out = Path(tmp, "profiled")
     opts = [str(out) if o == tmp else f"{out}/test" if o == f"{tmp}/test" else o
             for o in opts]
-    os.environ["PCTRANS_MSDA_IMPL"] = "pallas"
-    try:
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            main_torch.main(cfg_args + ["--opts", *opts])
-            torch.cuda.synchronize()
-    finally:
-        del os.environ["PCTRANS_MSDA_IMPL"]
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        main_torch.main(cfg_args + ["--opts", *opts])
+        torch.cuda.synchronize()
     events = [e for e in prof.key_averages() if e.self_device_time_total > 0]
     total = sum(e.self_device_time_total for e in events) / 1e3
-    k5 = [e for e in events if K5_KERNEL in e.key]
-    k5_ms = sum(e.self_device_time_total for e in k5) / 1e3
-    k5_n = sum(e.count for e in k5)
-    print(f"main_torch.py under PCTRANS_MSDA_IMPL=pallas, profiled run: {total:.3f} ms of "
-          f"device time, K5 {k5_ms:.3f} ms of it in {k5_n} kernel events kept of "
-          f"{k5_launches} launches ({k5_ms / max(k5_n, 1):.4f} ms each), on {card}")
+    k1 = [e for e in events if "msdeform_fwd_kernel" in e.key]
+    k1_ms = sum(e.self_device_time_total for e in k1) / 1e3
+    k1_n = sum(e.count for e in k1)
+    print(f"main_torch.py, profiled run: {total:.3f} ms of device time, K1 {k1_ms:.3f} ms "
+          f"of it in {k1_n} kernel events kept of {k1_launches} launches "
+          f"({k1_ms / max(k1_n, 1):.4f} ms each), on {card}")
 
 
 def cvppp_entry_args(tmp):
@@ -1414,10 +1399,11 @@ def cvppp_entry_args(tmp):
 
 
 def entry_points(card, keep: Path):
-    """``scripts/main_torch.py`` as a user runs it, under
-    ``PCTRANS_MSDA_IMPL=pallas`` (K5), then ``scripts/eval_torch.py`` over
-    its checkpoints under the default dispatch (K1).  The last checkpoint is
-    copied into ``keep`` (phase 14 scores it on the on-disk tree)."""
+    """``scripts/main_torch.py`` as a user runs it (K1 forward, K2 backward,
+    K5 never), then ``scripts/eval_torch.py`` over its checkpoints.  The
+    last checkpoint is copied into ``keep`` (phase 14 scores it on the
+    on-disk tree).  Returns the training run's K5 launches (asserted 0)
+    and its per-iteration records."""
     import shutil
 
     import pctrans_torch.engine.trainer as trainer_module
@@ -1452,21 +1438,19 @@ def entry_points(card, keep: Path):
         for fn in counters:
             fn.launches = 0
         trainer_module.make_train_step = timed_steps
-        os.environ["PCTRANS_MSDA_IMPL"] = "pallas"
         try:
             t0 = time.perf_counter()
             trainer = main_torch.main(cfg_args + ["--opts", *opts])
             train_wall = time.perf_counter() - t0
         finally:
-            del os.environ["PCTRANS_MSDA_IMPL"]
             trainer_module.make_train_step = make_step
         k1, k5, k2, k3, k4 = [fn.launches for fn in counters]
         fwd = trainer.evaluator.forwards
         c = trainer.model_config
-        print(f"main_torch.py, PCTRANS_MSDA_IMPL=pallas, {ENTRY_ITERS} bf16 iterations "
+        print(f"main_torch.py, {ENTRY_ITERS} bf16 iterations "
               f"of {trainer.cfg.SOLVER.SAMPLES_PER_BATCH}x{trainer.cfg.MODEL.INPUT_SIZE} + "
-              f"{fwd} validation forwards: launches K5 {k5}, K1 {k1}, K2 {k2}, K3 {k3}, K4 {k4}")
-        if [k5, k1, k2, k3, k4] != [c.enc_layers * (ENTRY_ITERS + fwd), 0,
+              f"{fwd} validation forwards: launches K1 {k1}, K5 {k5}, K2 {k2}, K3 {k3}, K4 {k4}")
+        if [k1, k5, k2, k3, k4] != [c.enc_layers * (ENTRY_ITERS + fwd), 0,
                                     c.enc_layers * ENTRY_ITERS, (c.dec_layers + 1) * fwd, fwd]:
             raise AssertionError("entry-point launch counts do not match the run")
         lines = [json.loads(l) for l in Path(tmp, "metrics.jsonl").read_text().splitlines()]
@@ -1486,7 +1470,7 @@ def entry_points(card, keep: Path):
         print(f"host ms per train iteration (synchronised): "
               + " ".join(f"{t:.1f}" for t in step_ms)
               + f"; main_torch.py wall {train_wall:.3f} s, on {card}")
-        entry_device_time(main_torch, cfg_args, opts, tmp, k5_train, card)
+        entry_device_time(main_torch, cfg_args, opts, tmp, k1, card)
 
         for fn in counters:
             fn.launches = 0
@@ -1495,7 +1479,7 @@ def entry_points(card, keep: Path):
                                               "--opts", *opts])
         sweep_wall = time.perf_counter() - t0
         k1, k5, k2, k3, k4 = [fn.launches for fn in counters]
-        print(f"eval_torch.py, default dispatch: {len(records)} records "
+        print(f"eval_torch.py: {len(records)} records "
               f"{records}; launches K1 {k1}, K3 {k3}, K4 {k4} (one per forward), "
               f"K5 {k5}, K2 {k2}; sweep wall {sweep_wall:.3f} s, on {card}")
         if [r["iter"] for r in records] != [2, 4] or \
@@ -1884,13 +1868,13 @@ def swap_kernels_on_model_inputs(model, x, name) -> dict:
 
     k3_calls, k4_calls = [], []
 
-    def keep_k3(*a, impl=None):
+    def keep_k3(*a):
         k3_calls.append(a)
-        return dynamic_mask_render(*a, impl=impl)
+        return dynamic_mask_render(*a)
 
-    def keep_k4(*a, impl=None):
+    def keep_k4(*a):
         k4_calls.append(a)
-        return resize_bilinear_binarize(*a, impl=impl)
+        return resize_bilinear_binarize(*a)
 
     decoder_module.dynamic_mask_render = keep_k3
     eval_step_module.resize_bilinear_binarize = keep_k4
@@ -2267,9 +2251,8 @@ def compare_ranks(name, ranks, ref, card):
 
 def distributed_phase(dev, card, phase8_train):
     """Phase 10.  (a) ``scripts/main_torch.py --distributed`` as world 1
-    through env:// on NCCL with phase 8's arguments and environment
-    (``PCTRANS_MSDA_IMPL=pallas``): its per-iteration losses against phase
-    8's, its files those of one run.  (b) Two gloo ranks on the one card at
+    through env:// on NCCL with phase 8's arguments: its per-iteration
+    losses against phase 8's, its files those of one run.  (b) Two gloo ranks on the one card at
     per-rank batch 1 against one process at batch 2 (NCCL refuses two ranks
     on one device).  (c) The same on NCCL, one card per rank, where a second
     card exists.  Returns the launches of (a) and of (b)'s ranks."""
@@ -2278,7 +2261,7 @@ def distributed_phase(dev, card, phase8_train):
         t0 = time.perf_counter()
         (rec,) = launch_ranks({"kind": "main", "argv": ["--distributed", *cfg_args,
                                                           "--opts", *opts]},
-                              1, [0], {"PCTRANS_MSDA_IMPL": "pallas"})
+                              1, [0])
         wall = time.perf_counter() - t0
         lines = [json.loads(l) for l in Path(tmp, "metrics.jsonl").read_text().splitlines()]
         train = [r for r in lines if "eval" not in r]
@@ -2288,7 +2271,7 @@ def distributed_phase(dev, card, phase8_train):
         totals = [rel_diff(a["loss"], b["loss"]) for a, b in zip(train, phase8_train)]
         k5, k1, k2 = rec["launches"]
         print(f"10a main_torch.py --distributed, world {rec['world']} on {rec['backend']} "
-              f"({rec['device']}), PCTRANS_MSDA_IMPL=pallas: {len(train)} iterations, "
+              f"({rec['device']}): {len(train)} iterations, "
               f"launches K5 {k5}, K1 {k1}, K2 {k2}; losses against phase 8's: iteration 0 "
               f"largest rel-diff of a term {first:.3e} (<= {DIST_LOSS_RTOL[0]}), the total "
               "per iteration " + " ".join(f"{v:.3e}" for v in totals)
@@ -2301,7 +2284,7 @@ def distributed_phase(dev, card, phase8_train):
         if files != ["checkpoint_000002.pth.tar", "checkpoint_000004.pth.tar",
                      "checkpoint_best.pth.tar", "config.yaml", "metrics.jsonl", "test", "vis"] \
                 or len(lines) != len(train) + 1 or [k5, k1, k2] != \
-                [6 * (ENTRY_ITERS + rec["forwards"]), 0, 6 * ENTRY_ITERS]:
+                [0, 6 * (ENTRY_ITERS + rec["forwards"]), 6 * ENTRY_ITERS]:
             raise AssertionError(f"10a: the run wrote {files} and {len(lines)} records")
 
     ref = dist_steps_record(dev, DIST_STEPS, (0, TRAIN_BATCH))
@@ -3144,15 +3127,15 @@ def main() -> int:
     for gate, n in zip((gates[0], gates[2], gates[3]), pipelined):
         gate["pipeline_launches"] = n
     print(f"main paths: train K1 {k1}, K2 {k2}; eval K1 {k1_eval}, K3 {k3}, "
-          f"K4 {k4}, K7 {k7}; entry points under PCTRANS_MSDA_IMPL=pallas K5 {k5}; BBBC eval "
+          f"K4 {k4}, K7 {k7}; BBBC eval "
           f"K1, K3, K4, K7 {bbbc_eval}; BBBC entry points K1, K2, K3, K4 {bbbc_entry}; "
           f"sampled point modes K1, K2 {sampled}; entry points under the other settings "
           f"K1, K2, K3, K4 {settings_train}, their SWA evaluation K1, K3, K4 "
           f"{settings_eval}; Swin-T eval K1, K3, K4, K6, K7 {swin_eval}, Swin-T train K1, K2, "
           f"K3 {swin_train}, Swin-T entry points K1, K2, K3, K4, K6 {swin_entry}, their sweep "
           f"K1, K3, K4, K6 {swin_sweep}; the other combinations' eval K1, K3, K4, K7 {alt_eval} "
-          "(the kernels line reports K1/K2 from train, K3/K4/K7 from the CVPPP eval, K5 from "
-          "the entry-point run, K6 from the Swin-T eval)")
+          "(the kernels line reports K1/K2 from train, K3/K4/K7 from the CVPPP eval, K6 from "
+          f"the Swin-T eval; K5 {k5}, from phase 8's main_torch.py run)")
     launches = [k1, k2, k3, k4, k5, swin_eval[3], k7]
     gates += [k6_gate, k7_gate]
 

@@ -5,20 +5,20 @@ The eval forward of :class:`~.pctrans.PCTransModel` makes ~3,000 small
 launches, and the host queueing them one at a time keeps the card idle
 most of each batch.  Where the forward can see that a replay gives the
 eager answer -- a CUDA input, the model in eval mode under
-``inference_mode``, no ``impl``, no ``generator`` and no autocast region
-around the call (:func:`why_eager`), and no hook or ``forward`` of its
-own on a submodule -- :func:`run` serves it from CUDA graphs:
+``inference_mode``, no ``ops._build.twins()`` scope, no ``generator`` and
+no autocast region around the call (:func:`why_eager`), and no hook or
+``forward`` of its own on a submodule -- :func:`run` serves it from CUDA
+graphs:
 
 * The forward is captured in segments that end at each call of a
-  hand-written kernel: ``ms_deform_attn`` (K1, or K5 under
-  ``PCTRANS_MSDA_IMPL=pallas``), ``dynamic_mask_render`` (K3) and, in a
-  Swin backbone, ``window_attention`` (K6), which the model calls through
-  :func:`hand_kernel`.  A replay calls each of them
-  eagerly between its segments, looked up by its module attribute at that
-  moment, so whatever wraps the attribute (a profiler range, a count of
-  work, a planted fault) wraps every replayed call, and its ``.launches``
-  counter counts it; the output is copied into the slot the next segment
-  was captured to read.
+  hand-written kernel: ``ms_deform_attn`` (K1), ``dynamic_mask_render``
+  (K3) and, in a Swin backbone, ``window_attention`` (K6), which the model
+  calls through :func:`hand_kernel`.  A replay calls each of them eagerly
+  between its segments, looked up by its module attribute at that moment,
+  so whatever wraps the attribute (a profiler range, a count of work, a
+  planted fault) wraps every replayed call, and its ``.launches`` counter
+  counts it; the output is copied into the slot the next segment was
+  captured to read.
 * The first call of an input shape and dtype runs the forward eagerly on a
   side stream, which gives that call's answer, and then captures it there,
   with autocast's weight-cast cache off so that no cast made in the
@@ -50,6 +50,7 @@ from typing import Any, Callable, List, Optional
 import torch
 from torch import nn
 
+from ..ops import _build
 from ..utils import tracing
 
 MAX_SHAPES = 4
@@ -68,16 +69,16 @@ def hand_kernel(module: str, name: str, *args, **kwargs):
     return _tape(module, name, fn, args, kwargs)
 
 
-def why_eager(model: nn.Module, images: torch.Tensor, impl: Optional[str],
+def why_eager(model: nn.Module, images: torch.Tensor,
               generator: Optional[torch.Generator]) -> Optional[str]:
-    """Why ``model(images, impl, generator)`` runs eagerly; None where
+    """Why ``model(images, generator)`` runs eagerly; None where
     :func:`run` serves it."""
     if model.training:
         return "train mode"
     if not torch.is_inference_mode_enabled():
         return "not under inference_mode"
-    if impl is not None:
-        return f"impl={impl!r}"
+    if _build.in_twins():
+        return "inside _build.twins()"
     if generator is not None:
         return "a generator"
     if images.device.type != "cuda":

@@ -97,18 +97,18 @@ class PCTransModel(nn.Module):
                 upsample2x=c.upsample2x)
         init_weights(self, generator)
 
-    def forward(self, images: torch.Tensor, impl: Optional[str] = None,
+    def forward(self, images: torch.Tensor,
                 generator: Optional[torch.Generator] = None) -> Dict[str, Any]:
-        """images: [B, H, W, 3] f32.  ``impl="twin"`` runs every kernel's
-        plain twin (for kernel-vs-twin comparisons on the card);
-        ``generator`` feeds the Swin backbone's drop path in train mode.
-        The eval forward on the card replays CUDA graphs where
-        ``graphs.why_eager`` finds nothing against it (``models/graphs.py``)."""
-        if graphs.why_eager(self, images, impl, generator) is None:
+        """images: [B, H, W, 3] f32.  ``generator`` feeds the Swin backbone's
+        drop path in train mode.  The eval forward on the card replays CUDA
+        graphs where ``graphs.why_eager`` finds nothing against it
+        (``models/graphs.py``).  Inside ``ops._build.twins()`` every kernel
+        runs its plain twin (the kernel-vs-twin comparisons on the card)."""
+        if graphs.why_eager(self, images, generator) is None:
             return graphs.run(self, images, self._forward)
-        return self._forward(images, impl, generator)
+        return self._forward(images, generator)
 
-    def _forward(self, images: torch.Tensor, impl: Optional[str] = None,
+    def _forward(self, images: torch.Tensor,
                  generator: Optional[torch.Generator] = None) -> Dict[str, Any]:
         c = self.config
         mean = device_constant(tuple(c.pixel_mean), images.device)
@@ -118,18 +118,15 @@ class PCTransModel(nn.Module):
         with torch.autocast(x.device.type, dtype=torch.bfloat16,
                             enabled=self.config.dtype == "bfloat16"):
             with tracing.span("model.backbone"):
-                feats = (self.backbone(x, generator, impl)
+                feats = (self.backbone(x, generator)
                          if isinstance(self.backbone, SwinTransformer) else self.backbone(x))
             with tracing.span("model.pixel_decoder"):
-                if isinstance(self.pixel_decoder, MSDeformAttnPixelDecoder):
-                    mask_features, enc_top, multi_scale = self.pixel_decoder(feats, impl=impl)
-                else:
-                    mask_features, enc_top, multi_scale = self.pixel_decoder(feats)
+                mask_features, enc_top, multi_scale = self.pixel_decoder(feats)
             with tracing.span("model.predictor"):
                 if isinstance(self.predictor, StandardTransformerDecoder):
                     out = self.predictor(enc_top, mask_features)
                 else:
-                    out = self.predictor(multi_scale, mask_features, impl=impl)
+                    out = self.predictor(multi_scale, mask_features)
         out["mask_features"] = mask_features.permute(0, 2, 3, 1).float()
         return out
 

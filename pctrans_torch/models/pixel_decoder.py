@@ -17,7 +17,7 @@ so the mask features are f32.
 from __future__ import annotations
 
 import math
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Dict, List, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -59,8 +59,7 @@ class MSDeformAttn(nn.Module):
         self.output_proj = nn.Linear(d_model, d_model)
 
     def forward(self, query, reference_points, input_flatten,
-                spatial_shapes: Sequence[Tuple[int, int]],
-                impl: Optional[str] = None) -> torch.Tensor:
+                spatial_shapes: Sequence[Tuple[int, int]]) -> torch.Tensor:
         B, Lq, C = query.shape
         S = input_flatten.shape[1]
         M, L, P = self.n_heads, self.n_levels, self.n_points
@@ -77,7 +76,7 @@ class MSDeformAttn(nn.Module):
 
         locations, attn = in_f32(sampling, query, reference_points)
         out = hand_kernel(__name__, "ms_deform_attn", value, spatial_shapes, locations,
-                          attn, impl=impl)
+                          attn)
         return self.output_proj(out)
 
 
@@ -91,9 +90,8 @@ class MSDeformAttnEncoderLayer(nn.Module):
         self.linear2 = nn.Linear(d_ffn, d_model)
         self.norm2 = LayerNorm(d_model, keep_dtype=True)
 
-    def forward(self, src, pos, reference_points, spatial_shapes, impl=None):
-        attn = self.self_attn(src + pos, reference_points, src, spatial_shapes,
-                              impl=impl)
+    def forward(self, src, pos, reference_points, spatial_shapes):
+        attn = self.self_attn(src + pos, reference_points, src, spatial_shapes)
         src = self.norm1(src + attn)
         y = self.linear2(F.relu(self.linear1(src)))
         return self.norm2(src + y)
@@ -144,7 +142,7 @@ class MSDeformAttnPixelDecoder(nn.Module):
             ConvNorm(conv_dim, conv_dim, 3, norm=norm, relu=True)
             for _ in self.fpn)
 
-    def forward(self, features: Dict[str, torch.Tensor], impl=None):
+    def forward(self, features: Dict[str, torch.Tensor]):
         srcs, pos, spatial_shapes = [], [], []
         for i, name in enumerate(self.tif):
             x = features[name]
@@ -161,7 +159,7 @@ class MSDeformAttnPixelDecoder(nn.Module):
         refs = refs[None].expand(src.shape[0], -1, -1, -1)
         y = src
         for layer in self.encoder_layer:
-            y = layer(y, pos_flat, refs, spatial_shapes, impl=impl)
+            y = layer(y, pos_flat, refs, spatial_shapes)
 
         out: List[torch.Tensor] = []
         start = 0

@@ -12,7 +12,7 @@ runs the twin under autograd (K6 has no backward, ROADMAP D.10); an
 eval-mode forward calls K6 (``ops/window_attn.py``), which on a CUDA
 tensor raises for what it cannot take (a dtype other than bf16, heads
 other than 32 wide, a window over 12, inputs that need a gradient) and
-on a CPU tensor or with ``impl="twin"`` runs the twin; a backbone built
+on a CPU tensor or inside ``ops._build.twins()`` runs the twin; a backbone built
 with ``attention="twin"`` (an f32 configuration: K6 is bf16 only) runs
 the twin in both modes.
 
@@ -80,7 +80,7 @@ class WindowAttention(nn.Module):
     """W-MSA with a relative position bias (``swin.py:71-109``).  Between
     the qkv projection and ``proj``: in eval mode K6 through
     ``graphs.hand_kernel`` (the wrapper takes the twin on a CPU tensor or
-    with ``impl="twin"``, and raises on a CUDA tensor it cannot take); in
+    inside ``ops._build.twins()``, and raises on a CUDA tensor it cannot take); in
     train mode, or with ``kernel=False``, the twin under autograd."""
 
     def __init__(self, dim: int, window_size: int, num_heads: int,
@@ -95,7 +95,7 @@ class WindowAttention(nn.Module):
         self.proj = nn.Linear(dim, dim)
 
     def forward(self, x: torch.Tensor, ws: int, shift: int = 0,
-                grid: Tuple[int, int] = (1, 1), impl: Optional[str] = None) -> torch.Tensor:
+                grid: Tuple[int, int] = (1, 1)) -> torch.Tensor:
         """x: [B*nW, ws*ws, C], the windows of ``grid`` (nWh, nWw) per image
         after a cyclic shift by ``shift``."""
         qkv = self.qkv(x)
@@ -105,7 +105,7 @@ class WindowAttention(nn.Module):
             # K6 has no backward (ROADMAP D.10): training runs the twin under autograd
             out = window_attention_twin(*args)
         else:
-            out = hand_kernel(__name__, "window_attention", *args, impl=impl)
+            out = hand_kernel(__name__, "window_attention", *args)
         return self.proj(out)
 
 
@@ -130,8 +130,7 @@ class SwinBlock(nn.Module):
         return drop_path(h, self.drop_path, generator)
 
     def forward(self, x: torch.Tensor, hw: Tuple[int, int],
-                generator: Optional[torch.Generator] = None,
-                impl: Optional[str] = None) -> torch.Tensor:
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         H, W = hw
         B, L, C = x.shape
         ws, shift = self.window_size, self.shift_size
@@ -147,7 +146,7 @@ class SwinBlock(nn.Module):
         if shift > 0:
             x = torch.roll(x, (-shift, -shift), (1, 2))
         x = window_reverse(self.attn(window_partition(x, ws), ws, shift,
-                                     (Hp // ws, Wp // ws), impl), ws, Hp, Wp)
+                                     (Hp // ws, Wp // ws)), ws, Hp, Wp)
         if shift > 0:
             x = torch.roll(x, (shift, shift), (1, 2))
         x = x[:, :H, :W].reshape(B, L, C)
@@ -207,8 +206,8 @@ class SwinTransformer(nn.Module):
         self.downsample = nn.ModuleList(PatchMerging(d) for d in dims[:-1])
         self.out_norm = nn.ModuleList(LayerNorm(d) for d in dims)
 
-    def forward(self, images: torch.Tensor, generator: Optional[torch.Generator] = None,
-                impl: Optional[str] = None) -> Dict[str, torch.Tensor]:
+    def forward(self, images: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> Dict[str, torch.Tensor]:
         ps = self.patch_size
         H0, W0 = images.shape[-2:]
         x = F.pad(images, (0, (ps - W0 % ps) % ps, 0, (ps - H0 % ps) % ps))
@@ -219,7 +218,7 @@ class SwinTransformer(nn.Module):
         outs = {}
         for i, stage in enumerate(self.blocks):
             for block in stage:
-                x = block(x, hw, generator, impl)
+                x = block(x, hw, generator)
             y = self.out_norm[i](x)
             outs[f"res{i + 2}"] = y.transpose(1, 2).reshape(B, y.shape[-1], *hw)
             if i < len(self.downsample):

@@ -159,8 +159,7 @@ class MultiScaleMaskedTransformerDecoder(nn.Module):
                 ConvNorm(d, d, 3, norm=sem_norm, relu=True, use_bias=False)])
             self.sem_logits = Conv2dF32(d, 1, 1)
 
-    def forward(self, x: Sequence[torch.Tensor], mask_features: torch.Tensor,
-                impl: Optional[str] = None) -> Dict:
+    def forward(self, x: Sequence[torch.Tensor], mask_features: torch.Tensor) -> Dict:
         """x: [res5', res4', res3'] NCHW; mask_features NCHW at stride 4."""
         B = x[0].shape[0]
         d = self.hidden_dim
@@ -188,8 +187,7 @@ class MultiScaleMaskedTransformerDecoder(nn.Module):
 
         predictions_mask, outputs_coords = [], []
         outputs_mask, attn_bias = self.dynamic_mask_with_coords(
-            mask_feat, reference_points, self.controller(output), size_list[0],
-            impl)
+            mask_feat, reference_points, self.controller(output), size_list[0])
         predictions_mask.append(outputs_mask)
 
         for i in range(self.dec_layers):
@@ -210,7 +208,7 @@ class MultiScaleMaskedTransformerDecoder(nn.Module):
 
             outputs_mask, attn_bias = self.dynamic_mask_with_coords(
                 mask_feat, new_reference_points, self.controller(output),
-                size_list[(i + 1) % self.num_feature_levels], impl)
+                size_list[(i + 1) % self.num_feature_levels])
             predictions_mask.append(outputs_mask)
 
             coord = torch.sigmoid(self.point_embed(self.decoder_norm(output))
@@ -227,8 +225,7 @@ class MultiScaleMaskedTransformerDecoder(nn.Module):
         }
 
     def dynamic_mask_with_coords(self, mask_feat, reference_points, params,
-                                 attn_size: Tuple[int, int],
-                                 impl: Optional[str] = None):
+                                 attn_size: Tuple[int, int]):
         """Render per-query masks (``:347-461``).
 
         Returns (mask logits [B, Q, Hm, Wm] in the compute dtype, or
@@ -252,7 +249,7 @@ class MultiScaleMaskedTransformerDecoder(nn.Module):
         # compute dtype, as the JAX train graph does (transformer_decoder.py:
         # 398-400, 436-443); eval takes K3, which computes in f32
         mask_logits = (render_twin(*args, dtype=dtype) if self.training else
-                       hand_kernel(__name__, "dynamic_mask_render", *args, impl=impl))
+                       hand_kernel(__name__, "dynamic_mask_render", *args))
         mask_logits = mask_logits.reshape(B, Q, Hm, Wm).to(dtype)
 
         attn = resize_bilinear(mask_logits, attn_size)

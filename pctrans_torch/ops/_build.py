@@ -8,12 +8,17 @@ root; the library's name carries a hash of the sources and flags, so an
 edited source rebuilds.  A missing ``nvcc`` or a failed build raises
 ``RuntimeError``: there is no fallback.
 
-Each C entry point launches on the stream it is given and returns
-``cudaGetLastError()``; :func:`check` raises on a non-zero code.
+The wrappers (``ops/msdeform.py``, ``render.py``, ``resize_binarize.py``,
+``window_attn.py``, ``mask_stats.py``) ask :func:`use_kernel` whether to
+run the kernel or the plain twin, and launch through :func:`launch`.  Each
+C entry point launches on the stream it is given and returns
+``cudaGetLastError()``; :func:`launch` raises on a non-zero code.
 """
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import ctypes
 import functools
 import hashlib
@@ -24,6 +29,8 @@ from pathlib import Path
 from typing import Optional
 
 import torch
+
+from ..utils import tracing
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "pctrans_torch_kernels"
@@ -138,18 +145,39 @@ def load_kernels() -> ctypes.CDLL:
     return lib
 
 
+# this thread's open twins() scopes: while one is, every wrapper runs its twin
+_twin_scopes = contextvars.ContextVar("twin_scopes", default=0)
+
+
+@contextlib.contextmanager
+def twins():
+    """Every wrapper called from this thread runs its plain twin inside,
+    on any device: the whole-model kernel-against-twin comparisons on the
+    card.  Other threads keep the kernels.  Restores the outer state on
+    exit, exceptions included; scopes nest."""
+    token = _twin_scopes.set(_twin_scopes.get() + 1)
+    try:
+        yield
+    finally:
+        _twin_scopes.reset(token)
+
+
+def in_twins() -> bool:
+    """Whether this thread has a :func:`twins` scope open."""
+    return _twin_scopes.get() > 0
+
+
 def use_kernel(t: torch.Tensor, impl: Optional[str], op: str) -> bool:
     """Dispatch rule shared by the kernel wrappers.
 
     ``impl=None``: a CPU tensor takes the plain twin, a CUDA tensor the
-    kernel; any other device raises.  ``impl="twin"`` runs the twin on any
-    device (the kernel-vs-twin comparisons on the card).
+    kernel; any other device raises.  ``impl="twin"``, or an open
+    :func:`twins` scope, runs the twin on any device (the kernel-vs-twin
+    comparisons on the card).
     """
-    if impl == "twin":
-        return False
-    if impl is not None:
+    if impl not in (None, "twin"):
         raise ValueError(f"{op}: impl must be None or 'twin', got {impl!r}")
-    if t.device.type == "cpu":
+    if impl == "twin" or in_twins() or t.device.type == "cpu":
         return False
     if t.device.type != "cuda":
         raise RuntimeError(f"{op}: no kernel for device {t.device}")
@@ -175,10 +203,21 @@ def stream_of(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
-def check(lib: ctypes.CDLL, rc: int, op: str) -> None:
+def launch(wrapper, entry: str, *args, counter: Optional[str] = None) -> None:
+    """Launch the library's ``entry`` with ``args`` (a tensor passes its
+    data pointer) and, last, the current stream of the first tensor's
+    device; raise on a non-zero code; add one to ``wrapper.launches`` and,
+    where ``counter`` is given, to that ``utils/tracing`` counter."""
+    lib = load_kernels()
+    stream = stream_of(next(a for a in args if isinstance(a, torch.Tensor)))
+    rc = getattr(lib, entry)(*(a.data_ptr() if isinstance(a, torch.Tensor) else a
+                               for a in args), stream)
     if rc != 0:
         msg = lib.pctrans_cuda_error_string(rc).decode()
-        raise RuntimeError(f"{op}: CUDA error {rc} at launch: {msg}")
+        raise RuntimeError(f"{wrapper.__name__}: CUDA error {rc} at launch: {msg}")
+    wrapper.launches += 1
+    if counter is not None:
+        tracing.count(counter)
 
 
 def compare_build_times() -> None:

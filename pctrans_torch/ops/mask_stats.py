@@ -19,7 +19,6 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from ..utils import tracing
 from . import _build
 
 TILE = 128          # masks per tile: a K7 block takes one tile pair I <= J
@@ -97,14 +96,8 @@ def packed_mask_stats(masks: torch.Tensor, extra: Optional[torch.Tensor] = None,
     ws = torch.empty((B, K, K), dtype=torch.int32, device=dev)
     out = torch.empty((B, K, K + 1 + (extra is not None)), dtype=torch.float32, device=dev)
     p = plan(B, K, H * W, _sm_count(dev))
-    lib = _build.load_kernels()
-    rc = lib.pctrans_mask_stats(masks.data_ptr(),
-                                None if extra is None else extra.data_ptr(),
-                                ws.data_ptr(), out.data_ptr(), B, K, H * W, p.tiles,
-                                p.chunks, p.stages_per_chunk, _build.stream_of(masks))
-    _build.check(lib, rc, "packed_mask_stats")
-    packed_mask_stats.launches += 1
-    tracing.count("mask_stats_kernel")
+    _build.launch(packed_mask_stats, "pctrans_mask_stats", masks, extra, ws, out, B, K,
+                  H * W, p.tiles, p.chunks, p.stages_per_chunk, counter="mask_stats_kernel")
     return out
 
 

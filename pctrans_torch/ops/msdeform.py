@@ -19,12 +19,8 @@ dtype before stage 1, as the JAX kernel does (``ROADMAP.md`` §C.10).
 ``ms_deform_attn_core_pallas2``'s custom VJP does;
 :class:`MSDeformAttnSeparableFunction` joins K5 and K2 (the JAX package
 differentiates K5 through XLA, which the card must not run on the path).
-
-Selection (``pctrans_tpu/ops/msdeform.py:66-82``): :func:`ms_deform_attn`
-with ``impl=None`` reads ``$PCTRANS_MSDA_IMPL`` at every call: unset,
-``auto`` or ``pallas2`` take K1, ``pallas`` takes K5.  An explicit ``impl``
-(``"twin"``, ``"pallas"``, ``"pallas2"``) wins over the variable.  On the
-CPU ``pallas`` runs the separable twin and the default the 4-corner twin.
+The model calls :func:`ms_deform_attn` (K1); K5 is reached only by calling
+:func:`ms_deform_attn_separable`.
 
 Op contract (``pctrans_tpu/ops/msdeform.py:1-18``): for every query, head
 and level, bilinearly sample ``P`` points of the flattened value map and
@@ -53,7 +49,6 @@ zero.
 from __future__ import annotations
 
 import ctypes
-import os
 from typing import Optional, Sequence, Tuple
 
 import torch
@@ -146,36 +141,6 @@ def ms_deform_attn_separable_twin(value: torch.Tensor,
     return out.permute(0, 2, 1, 3).reshape(B, Lq, M * D).to(value.dtype)
 
 
-# TPU formulations the port does not carry (ROADMAP.md, "Not to port")
-_NOT_PORTED = ("matmul", "separable", "gather", "reference")
-
-
-def resolve_impl(impl: Optional[str]) -> str:
-    """The formulation :func:`ms_deform_attn` runs: ``"pallas2"`` (K1),
-    ``"pallas"`` (K5) or ``"twin"`` (the 4-corner twin on any device).
-    ``impl=None`` reads ``$PCTRANS_MSDA_IMPL`` now; the variable selects a
-    kernel only, never a twin."""
-    if impl in ("twin", "pallas", "pallas2"):
-        return impl
-    if impl is not None:
-        source, name = "impl", impl
-    else:
-        name = os.environ.get("PCTRANS_MSDA_IMPL") or "auto"
-        if name in ("auto", "pallas2"):
-            return "pallas2"
-        if name == "pallas":
-            return "pallas"
-        source = "$PCTRANS_MSDA_IMPL"
-    if name in _NOT_PORTED:
-        raise ValueError(
-            f"ms_deform_attn: {source}={name!r} is a TPU formulation on "
-            "ROADMAP.md's 'Not to port' list; the port has pallas2 (K1) and "
-            "pallas (K5)")
-    allowed = ("None, 'twin', 'pallas' or 'pallas2'" if source == "impl"
-               else "unset, 'auto', 'pallas2' or 'pallas'")
-    raise ValueError(f"ms_deform_attn: {source} must be {allowed}, got {name!r}")
-
-
 def _shapes_arg(spatial_shapes):
     flat = [int(v) for hw in spatial_shapes for v in hw]
     return ctypes.cast((ctypes.c_int * len(flat))(*flat), ctypes.c_void_p)
@@ -219,13 +184,9 @@ def _launch_forward(value, spatial_shapes, loc, w) -> torch.Tensor:
     _check_kernel_inputs("ms_deform_attn", value, loc, w)
     _check_forward_layout(value, loc, w)
     out = torch.empty((B, Lq, M * D), dtype=value.dtype, device=value.device)
-    lib = _build.load_kernels()
-    rc = lib.pctrans_msdeform_fwd(
-        value.data_ptr(), loc.data_ptr(), w.data_ptr(), out.data_ptr(),
-        B, S, M, D, Lq, L, P, _shapes_arg(spatial_shapes),
-        int(value.dtype == torch.bfloat16), _build.stream_of(value))
-    _build.check(lib, rc, "ms_deform_attn")
-    ms_deform_attn.launches += 1
+    _build.launch(ms_deform_attn, "pctrans_msdeform_fwd", value, loc, w, out,
+                  B, S, M, D, Lq, L, P, _shapes_arg(spatial_shapes),
+                  int(value.dtype == torch.bfloat16))
     return out
 
 
@@ -308,14 +269,9 @@ def _launch_separable(value, spatial_shapes, loc, w) -> torch.Tensor:
     smem = max(sum((h1 - h0) * D * separable_row_stride(spatial_shapes[lid][1],
                                                          value.element_size())
                    for lid, h0, h1, _ in segs) for segs in passes) * value.element_size()
-    lib = _build.load_kernels()
-    rc = lib.pctrans_msdeform_sep_fwd(
-        value.data_ptr(), loc.data_ptr(), w.data_ptr(), out.data_ptr(),
-        None if part is None else part.data_ptr(),
-        B, S, M, D, Lq, L, P, _shapes_arg(spatial_shapes), plan, smem,
-        int(value.dtype == torch.bfloat16), _build.stream_of(value))
-    _build.check(lib, rc, "ms_deform_attn_separable")
-    ms_deform_attn_separable.launches += 1
+    _build.launch(ms_deform_attn_separable, "pctrans_msdeform_sep_fwd", value, loc, w,
+                  out, part, B, S, M, D, Lq, L, P, _shapes_arg(spatial_shapes), plan,
+                  smem, int(value.dtype == torch.bfloat16))
     return out
 
 
@@ -356,16 +312,10 @@ def ms_deform_attn(value: torch.Tensor,
                    sampling_locations: torch.Tensor,
                    attention_weights: torch.Tensor,
                    impl: Optional[str] = None) -> torch.Tensor:
-    """The formulation :func:`resolve_impl` picks: K1 (+ K2 under autograd)
-    or, for ``pallas``, :func:`ms_deform_attn_separable`.  A CPU tensor
-    takes the formulation's twin; ``impl="twin"`` the 4-corner twin on any
-    device (see ``_build.use_kernel``)."""
+    """K1 (+ K2 under autograd) for CUDA tensors, the 4-corner twin for CPU
+    tensors or ``impl="twin"`` (see ``_build.use_kernel``)."""
     _check_shapes("ms_deform_attn", value, spatial_shapes, sampling_locations)
-    impl = resolve_impl(impl)
-    if impl == "pallas":
-        return ms_deform_attn_separable(value, spatial_shapes, sampling_locations,
-                                        attention_weights)
-    if impl == "twin" or not _build.use_kernel(value, None, "ms_deform_attn"):
+    if not _build.use_kernel(value, impl, "ms_deform_attn"):
         return ms_deform_attn_twin(value, spatial_shapes, sampling_locations,
                                    attention_weights)
     return MSDeformAttnFunction.apply(
@@ -467,15 +417,10 @@ def ms_deform_attn_backward(value: torch.Tensor,
     d_value = torch.zeros((B, S, M, D), dtype=torch.float32, device=value.device)
     d_loc = torch.empty_like(loc)
     d_w = torch.empty_like(w)
-    lib = _build.load_kernels()
-    rc = lib.pctrans_msdeform_bwd(
-        value.data_ptr(), loc.data_ptr(), w.data_ptr(), grad.data_ptr(),
-        d_value.data_ptr(), d_loc.data_ptr(), d_w.data_ptr(),
-        B, S, M, D, Lq, L, P, _shapes_arg(spatial_shapes),
-        backward_aggregated_levels(spatial_shapes, Lq, P),
-        int(value.dtype == torch.bfloat16), _build.stream_of(value))
-    _build.check(lib, rc, "ms_deform_attn_backward")
-    ms_deform_attn_backward.launches += 1
+    _build.launch(ms_deform_attn_backward, "pctrans_msdeform_bwd", value, loc, w, grad,
+                  d_value, d_loc, d_w, B, S, M, D, Lq, L, P, _shapes_arg(spatial_shapes),
+                  backward_aggregated_levels(spatial_shapes, Lq, P),
+                  int(value.dtype == torch.bfloat16))
     return (d_value.to(value.dtype), d_loc.to(sampling_locations.dtype),
             d_w.to(attention_weights.dtype))
 

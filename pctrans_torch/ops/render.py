@@ -82,15 +82,11 @@ def dynamic_mask_render(feats, inst_xy, w1, w2, w3, b1, b2, b3,
     args = [t.float().contiguous() for t in (feats, inst_xy, w1, w2, w3, b1, b2, b3)]
     _build.check_inputs("dynamic_mask_render", *args)
     out = torch.empty((B, Q, HW), dtype=torch.float32, device=feats.device)
-    lib = _build.load_kernels()
     # scratch: each query's weights as the kernel's mma fragment records
-    records = torch.empty(lib.pctrans_render_records_floats(B, Q, Cm),
+    records = torch.empty(_build.load_kernels().pctrans_render_records_floats(B, Q, Cm),
                           dtype=torch.float32, device=feats.device)
-    rc = lib.pctrans_render_fwd(*[t.data_ptr() for t in args], records.data_ptr(),
-                                out.data_ptr(), B, Q, Hm, Wm, Cm, int(rel_coord),
-                                int(stride), _build.stream_of(feats))
-    _build.check(lib, rc, "dynamic_mask_render")
-    dynamic_mask_render.launches += 1
+    _build.launch(dynamic_mask_render, "pctrans_render_fwd", *args, records, out,
+                  B, Q, Hm, Wm, Cm, int(rel_coord), int(stride))
     return out
 
 

@@ -74,14 +74,8 @@ def resize_bilinear_binarize(x: torch.Tensor, size: Tuple[int, int],
     _build.check_inputs("resize_bilinear_binarize", x, row_idx, row_w,
                         col_idx, col_w)
     out = torch.empty((B, Q, H, W), dtype=torch.uint8, device=dev)
-    lib = _build.load_kernels()
-    rc = lib.pctrans_resize_binarize(
-        x.data_ptr(), row_idx.data_ptr(), row_w.data_ptr(), col_idx.data_ptr(),
-        col_w.data_ptr(), out.data_ptr(), B * Q, h, w, H, W, TILE_ROWS,
-        float(logit_t),
-        _build.stream_of(x))
-    _build.check(lib, rc, "resize_bilinear_binarize")
-    resize_bilinear_binarize.launches += 1
+    _build.launch(resize_bilinear_binarize, "pctrans_resize_binarize", x, row_idx, row_w,
+                  col_idx, col_w, out, B * Q, h, w, H, W, TILE_ROWS, float(logit_t))
     return out
 
 

@@ -29,7 +29,6 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from ..utils import tracing
 from . import _build
 
 HEAD_DIM = 32      # the kernel's head width (every published Swin's)
@@ -130,13 +129,9 @@ def window_attention(qkv: torch.Tensor, table: torch.Tensor, num_heads: int, ws:
     table = table.detach().float().contiguous()
     _build.check_inputs("window_attention", qkv, table)
     out = torch.empty((Bn, N, C), dtype=torch.bfloat16, device=qkv.device)
-    lib = _build.load_kernels()
-    rc = lib.pctrans_window_attn_fwd(qkv.data_ptr(), table.data_ptr(), out.data_ptr(),
-                                     Bn, ws, C, num_heads, table_ws, grid[0], grid[1],
-                                     shift, float(scale), _build.stream_of(qkv))
-    _build.check(lib, rc, "window_attention")
-    window_attention.launches += 1
-    tracing.count("window_attn_kernel")
+    _build.launch(window_attention, "pctrans_window_attn_fwd", qkv, table, out, Bn, ws, C,
+                  num_heads, table_ws, grid[0], grid[1], shift, float(scale),
+                  counter="window_attn_kernel")
     return out
 
 

@@ -15,7 +15,6 @@ gloo on the CPU; ``nccl`` or ``gloo`` as written.)
 Checkpoints land in DATASET.OUTPUT_PATH as ``checkpoint_%06d.pth.tar``;
 ``--inference --submission`` writes the CVPPP test split's predictions to
 INFERENCE.OUTPUT_PATH/submission.h5 (needs ``h5py``).
-``PCTRANS_MSDA_IMPL=pallas`` selects the separable ms-deform kernel (K5).
 ``main(argv)`` runs in-process and returns the Trainer.
 """
 

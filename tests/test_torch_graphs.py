@@ -12,7 +12,7 @@ the card by ``tests/test_torch_graphs_cuda.py``).
 * The eval step's and the train forward's outputs are bit-equal to those
   of a forward that builds its constants on every call, as it did before.
 * The forward stays eager on the CPU, in train mode, outside
-  ``inference_mode``, with ``impl="twin"`` or with a generator."""
+  ``inference_mode``, inside ``_build.twins()`` or with a generator."""
 
 import dataclasses
 
@@ -24,6 +24,7 @@ import pctrans_torch.models.pixel_decoder as pixel_decoder
 import pctrans_torch.models.transformer_decoder as transformer_decoder
 from pctrans_torch.engine.eval_step import make_eval_step
 from pctrans_torch.models import PCTransModel, graphs
+from pctrans_torch.ops import _build
 from test_torch_evaluator import HW, TINY
 
 torch.set_num_threads(1)
@@ -124,14 +125,29 @@ def test_why_eager_names_each_reason():
     model = _model(TINY)
     x = _images()
     with torch.inference_mode():
-        assert graphs.why_eager(model, x, None, None) == "a cpu input"
-        assert graphs.why_eager(model, x, "twin", None) == "impl='twin'"
-        assert graphs.why_eager(model, x, None, torch.Generator()) == "a generator"
+        assert graphs.why_eager(model, x, None) == "a cpu input"
+        with _build.twins():
+            assert graphs.why_eager(model, x, None) == "inside _build.twins()"
+        assert graphs.why_eager(model, x, torch.Generator()) == "a generator"
         model.train()
-        assert graphs.why_eager(model, x, None, None) == "train mode"
+        assert graphs.why_eager(model, x, None) == "train mode"
     model.eval()
     with torch.no_grad():
-        assert graphs.why_eager(model, x, None, None) == "not under inference_mode"
+        assert graphs.why_eager(model, x, None) == "not under inference_mode"
+
+
+def test_why_eager_names_the_twins_scope_until_it_ends():
+    """An eval forward inside ``_build.twins()`` stays eager whatever else
+    holds (the scope is named before a generator or the input's device);
+    the reason goes with the scope."""
+    model = _model(TINY)
+    x = _images()
+    with torch.inference_mode():
+        with _build.twins():
+            with _build.twins():
+                assert graphs.why_eager(model, x, torch.Generator()) == "inside _build.twins()"
+            assert graphs.why_eager(model, x, None) == "inside _build.twins()"
+        assert graphs.why_eager(model, x, torch.Generator()) == "a generator"
 
 
 @pytest.mark.parametrize("case", ["eval_step", "train", "twin"])
@@ -150,7 +166,8 @@ def test_forward_stays_eager_on_the_cpu(case, monkeypatch):
                 model.train()
                 out = model(x)
             else:
-                out = model(x, impl="twin")
+                with _build.twins():
+                    out = model(x)
         assert out["pred_masks"].shape[:2] == (2, TINY.num_queries)
     assert graphs._GRAPHS.get(model) is None
 

@@ -3,18 +3,23 @@ YAML or image libraries at import, kernels built only on request with no
 fallback, and no silent route from a kernel request to the twin."""
 
 import ast
+import contextlib
 import os
 import subprocess
 import sys
+import threading
+import types
 from pathlib import Path
 
 import pytest
 import torch
 
 from pctrans_torch.ops import _build
+from pctrans_torch.ops.mask_stats import packed_mask_stats
 from pctrans_torch.ops.msdeform import ms_deform_attn, ms_deform_attn_backward
 from pctrans_torch.ops.render import dynamic_mask_render
 from pctrans_torch.ops.resize_binarize import resize_bilinear_binarize
+from pctrans_torch.ops.window_attn import window_attention
 
 torch.set_num_threads(1)
 
@@ -154,6 +159,11 @@ def _meta_calls():
         (2, 3), 4, True, impl=impl)
     yield "resize_bilinear_binarize", lambda impl: resize_bilinear_binarize(
         torch.empty(1, 2, 3, 3, device=m), (6, 6), 0.8, impl=impl)
+    yield "window_attention", lambda impl: window_attention(
+        torch.empty(4, 4, 96, dtype=torch.bfloat16, device=m), torch.empty(9, 1, device=m),
+        1, 2, 2, 0, (2, 2), 0.1, impl=impl)
+    yield "packed_mask_stats", lambda impl: packed_mask_stats(
+        torch.empty(1, 2, 4, 4, dtype=torch.uint8, device=m), impl=impl)
 
 
 @pytest.mark.parametrize("name,call", [pytest.param(n, c, id=n)
@@ -167,6 +177,72 @@ def test_wrapper_on_a_non_cpu_device_raises_without_fallback(name, call):
         call(None)
     with pytest.raises(ValueError, match="impl"):
         call("kernel")
+
+
+@pytest.mark.parametrize("name,call", [pytest.param(n, c, id=n)
+                                       for n, c in _meta_calls()])
+def test_wrapper_refuses_the_tpu_formulation_names(name, call):
+    """``pallas`` (the JAX package's name for K5) selects nothing in a
+    wrapper: K5 is reached only by calling ``ms_deform_attn_separable``."""
+    with pytest.raises(ValueError, match=f"{name}: impl must be None or 'twin'"):
+        call("pallas")
+
+
+def _on(device: str):
+    """A stand-in for a tensor on ``device``: the rule reads only its device,
+    so a CUDA one needs no card."""
+    return types.SimpleNamespace(device=torch.device(device))
+
+
+@pytest.mark.parametrize("device,impl,scope,expect", [
+    ("cpu", None, False, "twin"),
+    ("cpu", "twin", False, "twin"),
+    ("cpu", None, True, "twin"),
+    ("cpu", "twin", True, "twin"),
+    ("meta", None, False, "raises"),
+    ("meta", "twin", False, "twin"),
+    ("meta", None, True, "twin"),
+    ("meta", "twin", True, "twin"),
+    ("cuda", None, False, "kernel"),
+    ("cuda", "twin", False, "twin"),
+    ("cuda", None, True, "twin"),
+    ("cuda", "twin", True, "twin"),
+])
+def test_one_rule_picks_the_kernel_or_the_twin(device, impl, scope, expect):
+    with _build.twins() if scope else contextlib.nullcontext():
+        if expect == "raises":
+            with pytest.raises(RuntimeError, match="op: no kernel for device meta"):
+                _build.use_kernel(_on(device), impl, "op")
+        else:
+            assert _build.use_kernel(_on(device), impl, "op") == (expect == "kernel")
+
+
+def test_twins_scope_ends_on_an_exception():
+    with pytest.raises(KeyError):
+        with _build.twins():
+            assert _build.in_twins() and not _build.use_kernel(_on("cuda"), None, "op")
+            raise KeyError("inside the scope")
+    assert not _build.in_twins() and _build.use_kernel(_on("cuda"), None, "op")
+
+
+def test_twins_scopes_nest():
+    with _build.twins():
+        with _build.twins():
+            assert not _build.use_kernel(_on("cuda"), None, "op")
+        assert _build.in_twins() and not _build.use_kernel(_on("cuda"), None, "op")
+    assert not _build.in_twins() and _build.use_kernel(_on("cuda"), None, "op")
+
+
+def test_twins_scope_reaches_only_its_own_thread():
+    seen = []
+    with _build.twins():
+        other = threading.Thread(
+            target=lambda: seen.append((_build.in_twins(),
+                                        _build.use_kernel(_on("cuda"), None, "op"))))
+        other.start()
+        other.join()
+        assert _build.in_twins()
+    assert seen == [(False, True)]
 
 
 def test_kernel_path_rejects_grad_and_foreign_devices():

@@ -265,7 +265,7 @@ def test_separable_kernel_matches_both_twins(dev, M, D, Lq, shapes, dtype, tol,
         loc[:, :, :, 0] = (corner + frac + 0.5) / size
     w = torch.rand(B, Lq, M, L, P, device=dev, generator=g)
     before = (ms_deform_attn.launches, ms_deform_attn_separable.launches)
-    out = ms_deform_attn(value, shapes, loc, w, impl="pallas")
+    out = ms_deform_attn_separable(value, shapes, loc, w)
     torch.cuda.synchronize()
     assert (ms_deform_attn.launches, ms_deform_attn_separable.launches) == \
         (before[0], before[1] + 1)
@@ -279,7 +279,7 @@ def test_separable_kernel_matches_both_twins(dev, M, D, Lq, shapes, dtype, tol,
 
 @pytest.mark.parametrize("on_grid", [False, True])
 def test_separable_function_backward_is_k2(dev, on_grid):
-    """Under autograd the pallas path runs K5 forward and K2 backward; its
+    """Under autograd ``ms_deform_attn_separable`` runs K5 forward and K2 backward; its
     gradients equal the 4-corner twin's autograd (integral samples included:
     both take the hat derivative 0 there)."""
     g = torch.Generator(device=dev).manual_seed(5)
@@ -293,17 +293,18 @@ def test_separable_function_backward_is_k2(dev, on_grid):
     w = torch.rand(B, Lq, M, L, P, device=dev, generator=g)
     gout = torch.randn(B, Lq, M * D, device=dev, generator=g)
 
-    def grads(impl):
+    def grads(fn, **kw):
         prim = [t.clone().requires_grad_() for t in (value, loc, w)]
-        ms_deform_attn(prim[0], shapes, prim[1], prim[2], impl=impl).backward(gout)
+        fn(prim[0], shapes, prim[1], prim[2], **kw).backward(gout)
         return [p.grad for p in prim]
 
     before = (ms_deform_attn_separable.launches, ms_deform_attn_backward.launches)
-    ours = grads("pallas")
+    ours = grads(ms_deform_attn_separable)
     torch.cuda.synchronize()
     assert (ms_deform_attn_separable.launches, ms_deform_attn_backward.launches) == \
         (before[0] + 1, before[1] + 1)
-    for name, a, b in zip(("value", "locations", "weights"), ours, grads("twin")):
+    for name, a, b in zip(("value", "locations", "weights"), ours,
+                          grads(ms_deform_attn, impl="twin")):
         assert _rel(a, b) <= 1e-5, name
 
 

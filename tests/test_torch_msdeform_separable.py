@@ -1,7 +1,8 @@
-"""K5's plain version (the separable twin), its gradient through the
-``pallas`` path and the ``$PCTRANS_MSDA_IMPL`` dispatch, against the JAX
-package's ``ms_deform_attn_core_pallas`` (``_level_kernel`` in interpret
-mode, as ``tests/test_ops.py`` runs it on the CPU).
+"""K5's plain version (the separable twin) and its gradient through
+``ms_deform_attn_separable``, against the JAX package's
+``ms_deform_attn_core_pallas`` (``_level_kernel`` in interpret mode, as
+``tests/test_ops.py`` runs it on the CPU); ``ms_deform_attn`` takes K1's
+path (the 4-corner twin on the CPU) whatever the environment says.
 
 Tolerances: f32 on both sides, other summation orders; the forward at
 rel-Fro 1e-5, the gradient at rel-Fro 1e-4 (its sums run over every pixel
@@ -22,12 +23,13 @@ import torch
 from pctrans_tpu.ops.msdeform_pallas import ms_deform_attn_core_pallas
 from pctrans_torch.config import ModelConfig
 from pctrans_torch.models import PCTransModel
+from pctrans_torch.models import pixel_decoder
 from pctrans_torch.models.pixel_decoder import MSDeformAttn
 from pctrans_torch.ops import msdeform
 from pctrans_torch.ops.msdeform import (ms_deform_attn, ms_deform_attn_separable,
                                         ms_deform_attn_separable_twin,
-                                        ms_deform_attn_twin, resolve_impl,
-                                        separable_plan, separable_row_stride)
+                                        ms_deform_attn_twin, separable_plan,
+                                        separable_row_stride)
 
 torch.set_num_threads(1)
 
@@ -64,9 +66,9 @@ def _jax_vjp(value, shapes, locs, attn, g):
     return [np.asarray(t) for t in vjp(jnp.asarray(g))]
 
 
-def _torch_grads(value, shapes, locs, attn, g, impl="pallas"):
+def _torch_grads(value, shapes, locs, attn, g, fn=ms_deform_attn_separable):
     prim = [torch.from_numpy(a).requires_grad_() for a in (value, locs, attn)]
-    out = ms_deform_attn(prim[0], list(shapes), prim[1], prim[2], impl=impl)
+    out = fn(prim[0], list(shapes), prim[1], prim[2])
     (out * torch.from_numpy(g)).sum().backward()
     return [p.grad.numpy() for p in prim]
 
@@ -140,7 +142,7 @@ def test_pallas_path_gradient_matches_jax_k5_off_the_grid():
     for name, a, b in zip(("value", "locations", "weights"), ours, ref):
         assert _rel(a, b) <= GRAD_REL, name
     # the 4-corner twin's autograd (K2's plain version) agrees as well
-    corner = _torch_grads(value, SHAPES, locs, attn, g, impl="twin")
+    corner = _torch_grads(value, SHAPES, locs, attn, g, fn=ms_deform_attn_twin)
     for name, a, b in zip(("value", "locations", "weights"), ours, corner):
         assert _rel(a, b) <= GRAD_REL, name
 
@@ -196,60 +198,11 @@ def _spy(monkeypatch):
     return calls
 
 
-@pytest.mark.parametrize("env,impl,expect", [
-    (None, None, "ms_deform_attn_twin"),
-    ("auto", None, "ms_deform_attn_twin"),
-    ("pallas2", None, "ms_deform_attn_twin"),
-    ("pallas", None, "ms_deform_attn_separable_twin"),
-    ("pallas", "pallas2", "ms_deform_attn_twin"),       # impl= wins
-    ("pallas", "twin", "ms_deform_attn_twin"),
-    (None, "pallas", "ms_deform_attn_separable_twin"),
-    ("pallas2", "pallas", "ms_deform_attn_separable_twin"),
-])
-def test_dispatch_reads_the_variable_at_call_time(monkeypatch, env, impl, expect):
-    if env is None:
-        monkeypatch.delenv("PCTRANS_MSDA_IMPL", raising=False)
-    else:
-        monkeypatch.setenv("PCTRANS_MSDA_IMPL", env)
-    calls = _spy(monkeypatch)
-    value, locs, attn, _ = _inputs(5, Lq=9)
-    before = (ms_deform_attn.launches, ms_deform_attn_separable.launches)
-    out = ms_deform_attn(*(torch.from_numpy(a) for a in (value,)), list(SHAPES),
-                         torch.from_numpy(locs), torch.from_numpy(attn), impl=impl)
-    assert calls == [expect] and out.shape == (2, 9, 16)
-    assert (ms_deform_attn.launches, ms_deform_attn_separable.launches) == before
-
-
-@pytest.mark.parametrize("env", ["matmul", "separable", "gather", "reference"])
-def test_tpu_formulations_are_rejected(monkeypatch, env):
-    monkeypatch.setenv("PCTRANS_MSDA_IMPL", env)
-    with pytest.raises(ValueError, match="Not to port"):
-        resolve_impl(None)
-    monkeypatch.delenv("PCTRANS_MSDA_IMPL")
-    with pytest.raises(ValueError, match="Not to port"):
-        resolve_impl(env)
-
-
-@pytest.mark.parametrize("env", ["twin", "plain", "kernel"])
-def test_the_variable_cannot_select_a_twin(monkeypatch, env):
-    monkeypatch.setenv("PCTRANS_MSDA_IMPL", env)
-    with pytest.raises(ValueError, match="PCTRANS_MSDA_IMPL"):
-        resolve_impl(None)
-    assert resolve_impl("twin") == "twin"          # only the argument can
-
-
-def test_pallas_on_a_non_cpu_device_raises_without_fallback(monkeypatch):
-    monkeypatch.setenv("PCTRANS_MSDA_IMPL", "pallas")
-    m = "meta"
-    with pytest.raises(RuntimeError, match="ms_deform_attn_separable"):
-        ms_deform_attn(torch.empty(1, 6, 2, 4, device=m), [(2, 3)],
-                       torch.empty(1, 5, 2, 1, 2, 2, device=m),
-                       torch.empty(1, 5, 2, 1, 2, device=m))
-
-
-def test_model_forward_under_pallas_matches_the_default(monkeypatch):
-    """The tiny model's forward with PCTRANS_MSDA_IMPL=pallas (the separable
-    twin in every encoder layer) against the default (4-corner twin)."""
+def test_separable_wrapper_matches_the_four_corner_twin_on_the_models_inputs(monkeypatch):
+    """K5's path on the CPU (``ms_deform_attn_separable``: its twin) on the
+    (value, locations, weights) that the tiny model's encoder layers give
+    the ms-deform op, with samples off the pixel grid, against the 4-corner
+    twin that the model's own calls take."""
     cfg = ModelConfig(hidden_dim=32, conv_dim=32, mask_dim=8, num_queries=10,
                       nheads=4, dim_feedforward=64, enc_layers=2, dec_layers=3,
                       backbone_depth=14, head_norm="GN")
@@ -259,14 +212,33 @@ def test_model_forward_under_pallas_matches_the_default(monkeypatch):
             if isinstance(layer, MSDeformAttn):          # samples off the grid
                 layer.sampling_offsets.weight.normal_(0.0, 0.05)
     images = torch.from_numpy(np.random.RandomState(6).randn(2, 48, 40, 3).astype(np.float32))
-    calls = _spy(monkeypatch)
+    inputs = []
+
+    def keep(value, shapes, loc, w):
+        inputs.append((value, tuple(shapes), loc, w))
+        return ms_deform_attn(value, shapes, loc, w)
+
+    monkeypatch.setattr(pixel_decoder, "ms_deform_attn", keep)
     with torch.no_grad():
-        monkeypatch.delenv("PCTRANS_MSDA_IMPL", raising=False)
-        ref = model(images)["pred_masks"]
-        monkeypatch.setenv("PCTRANS_MSDA_IMPL", "pallas")
-        out = model(images)["pred_masks"]
-    assert calls == ["ms_deform_attn_twin"] * 2 + ["ms_deform_attn_separable_twin"] * 2
-    assert _rel(out.numpy(), ref.numpy()) <= 1e-4
+        model(images)
+        calls = _spy(monkeypatch)
+        assert len(inputs) == cfg.enc_layers
+        for value, shapes, loc, w in inputs:
+            out = ms_deform_attn_separable(value, shapes, loc, w)
+            assert _rel(out.numpy(), ms_deform_attn_twin(value, shapes, loc, w).numpy()) <= 1e-4
+    assert calls == ["ms_deform_attn_separable_twin"] * cfg.enc_layers
+
+
+def test_the_variable_no_longer_selects_a_formulation(monkeypatch):
+    """``$PCTRANS_MSDA_IMPL=pallas`` chose K5 before; ``ms_deform_attn`` now
+    reads no environment and takes the 4-corner twin on the CPU."""
+    value, locs, attn, _ = (torch.from_numpy(a) for a in _inputs(5, Lq=9))
+    monkeypatch.delenv("PCTRANS_MSDA_IMPL", raising=False)
+    want = ms_deform_attn(value, list(SHAPES), locs, attn)
+    calls = _spy(monkeypatch)
+    monkeypatch.setenv("PCTRANS_MSDA_IMPL", "pallas")
+    got = ms_deform_attn(value, list(SHAPES), locs, attn)
+    assert calls == ["ms_deform_attn_twin"] and torch.equal(got, want)
 
 
 # ------------------------------------------------ K5 arithmetic rehearsal

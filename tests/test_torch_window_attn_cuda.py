@@ -27,6 +27,7 @@ from pctrans_torch.config import CVPPP_RECIPE
 from pctrans_torch.data.synthetic import make_blob_image
 from pctrans_torch.engine.eval_step import make_eval_step
 from pctrans_torch.models import PCTransModel
+from pctrans_torch.ops import _build
 from pctrans_torch.ops.window_attn import (clamped_position_index, shift_attn_mask,
                                            window_attention)
 from pctrans_torch.utils import tracing
@@ -158,7 +159,8 @@ def test_swinl_forward_with_k6_against_the_twin(dev, swinl):
     x = _images(3).to(dev)
     with torch.inference_mode():
         got = swinl(x)
-        twin = swinl(x, impl="twin")           # eager, every kernel's twin
+        with _build.twins():                   # eager, every kernel's twin
+            twin = swinl(x)
     gap = rel_fro(got["mask_features"], twin["mask_features"])
     print(f"Swin-L mask features, K6 against the twin: {gap:.3e}")
     # 24 blocks of bf16 activations: each block's rounding flips move the
