@@ -25,7 +25,10 @@ Phases:
      K5 beside K1); then K7 (the masks' statistics) at the eval path's
      four shapes (CVPPP's 50 and 100 masks at 530x500, BBBC's 160 and 300
      at 520x696), bit-equal to its twin, timed beside it and beside an f32
-     and a bf16 ``bmm``;
+     and a bf16 ``bmm``; then K8 (the scored images' label-pair tables) at
+     the BBBC and CVPPP eval batches, an odd width and a misaligned start,
+     bit-equal to its twin (``torch.bincount``), timed beside it at the two
+     eval batches;
   4. the f32 forward of the full-width CVPPP recipe (seeded random weights)
      through the kernels and through the twins (inside ``_build.twins()``),
      on one batch of four synthetic 530x500 scenes;
@@ -35,7 +38,8 @@ Phases:
   6. the bf16 CVPPP recipe as served: the evaluator, which labels through
      the device postprocess, over three batches of four scenes, with launch
      counters showing the kernels ran (K1 = 6, K3 = 10, K4 = 1 per forward;
-     K7 = 1 per forward and 1 per batch for the merged masks)
+     K7 = 1 per forward and 1 per batch for the merged masks; K8 = 1 per
+     batch)
      and the end-to-end img/s; batch 0's label maps equal to the numpy
      oracle's on the same u8 masks; the device postprocess's ms per batch
      beside the oracle's; the host fetches of one ``predict_labels`` (the
@@ -885,6 +889,68 @@ def gate_mask_stats(dev, g):
     return rec
 
 
+# (prefix, B, H x W, largest GT id, largest predicted id, ground-truth dtype,
+# with CVPPP's foreground): BBBC's and CVPPP's eval batches, then an odd
+# width and a misaligned start
+K8_CASES = [("", BBBC_BATCH, BBBC_HW, 148, 300, torch.int32, False),
+            ("cvppp_", BATCH, IMAGE_HW, 12, 100, torch.int32, True),
+            ("odd_", 3, (67, 63), 20, 50, torch.int16, True),
+            ("misaligned_", 2, (53, 61), 9, 30, torch.uint16, False)]
+
+
+def label_pairs_inputs(dev, g, B, hw, max_gt, max_pred, gt_dtype, with_fg, offset):
+    """Blocky label maps (runs of equal ids, as painted maps have) and ground
+    truth on the card; ``offset`` elements into a larger buffer, so that
+    every base address is misaligned."""
+    def blocks(n_ids, block, dtype):
+        h, w = -(-hw[0] // block), -(-hw[1] // block)
+        small = torch.randint(0, n_ids + 1, (B, h, w), device=dev, generator=g)
+        full = small.repeat_interleave(block, 1).repeat_interleave(block, 2)
+        full = full[:, :hw[0], :hw[1]].to(dtype).reshape(-1)
+        buf = torch.empty(full.numel() + offset, dtype=dtype, device=dev)
+        buf[offset:] = full
+        return buf[offset:].view(B, *hw)
+
+    labels = blocks(max_pred, 7, torch.int16)
+    gt = blocks(max_gt, 11, gt_dtype)
+    fg = blocks(1, 5, torch.uint8) if with_fg else None
+    return labels, gt, fg
+
+
+def gate_label_pairs(dev, g):
+    """K8 against its twin (``torch.bincount`` of the keys) at each case of
+    ``K8_CASES``: bit-equal, or fail; then timed beside the twin at the two
+    eval shapes, its bound the bytes of the maps read once and the table
+    written once at 3.35 TB/s.  One record, the later cases under their key
+    prefixes."""
+    from pctrans_torch.ops.label_pairs import label_pairs
+
+    rec = {}
+    for prefix, B, hw, max_gt, max_pred, gt_dtype, with_fg in K8_CASES:
+        labels, gt, fg = label_pairs_inputs(dev, g, B, hw, max_gt, max_pred, gt_dtype,
+                                            with_fg, 1 if prefix == "misaligned_" else 0)
+        out = label_pairs(labels, gt, max_gt, max_pred, fg)
+        torch.cuda.synchronize()
+        twin = label_pairs(labels, gt, max_gt, max_pred, fg, impl="twin")
+        name = f"K8 [B={B}, {hw}, G={max_gt}, C={max_pred}, {gt_dtype}, fg {with_fg}]"
+        err = int((out - twin).abs().max())
+        print(f"{name}: largest |K8 - twin| {err} over {out.numel()} counts, each image "
+              f"{out.sum(dim=(1, 2)).tolist()} of {hw[0] * hw[1]} pixels (bit-equal required)")
+        if not torch.equal(out, twin) or (out.sum(dim=(1, 2)) != hw[0] * hw[1]).any():
+            raise AssertionError(f"{name} differs from its twin")
+        r = {"max_abs_err": float(err), "library_ms": None}
+        if prefix in ("", "cvppp_"):
+            r.update(timed(name, lambda: label_pairs(labels, gt, max_gt, max_pred, fg),
+                           lambda: label_pairs(labels, gt, max_gt, max_pred, fg,
+                                               impl="twin")))
+            r.update(bound(name, nbytes(labels, gt, out, *(() if fg is None else (fg,))),
+                           0.0, r["device_ms"]))
+        rec.update({f"{prefix}{k}": v for k, v in r.items()
+                    if not (prefix and k in ("bound_by", "library_ms"))})
+        del labels, gt, fg, out, twin
+    return rec
+
+
 # ----------------------------------------------------------------- slices
 def build_model(config, dev):
     from pctrans_torch.models import PCTransModel
@@ -1064,8 +1130,9 @@ def eval_run(name, ev, batches, score, layers):
     forward, re-runs included, and K6 none, or, where ``layers`` has a
     fourth entry (a Swin backbone's blocks), that many times per forward;
     K7 once per forward and, in the CVPPP protocol, once per batch for the
-    merged masks.  Returns (launches: those of ``layers`` and K7's last,
-    forwards, wall s, metrics)."""
+    merged masks; K8 once per batch.  Returns (launches: those of
+    ``layers``, then K7's and K8's, forwards, wall s, metrics)."""
+    from pctrans_torch.ops.label_pairs import label_pairs
     from pctrans_torch.ops.mask_stats import packed_mask_stats
     from pctrans_torch.ops.msdeform import ms_deform_attn
     from pctrans_torch.ops.render import dynamic_mask_render
@@ -1075,7 +1142,7 @@ def eval_run(name, ev, batches, score, layers):
     ev.predict_labels(batches[0]["image"])            # warm-up, not counted
     torch.cuda.synchronize()
     counters = (ms_deform_attn, dynamic_mask_render, resize_bilinear_binarize,
-                window_attention, packed_mask_stats)
+                window_attention, packed_mask_stats, label_pairs)
     for fn in counters:
         fn.launches = 0
     ev.forwards = 0
@@ -1089,9 +1156,10 @@ def eval_run(name, ev, batches, score, layers):
     n_img = sum(b["image"].shape[0] for b in batches)
     print(f"{name} over {len(batches)} batches: {fwd} forwards ({fwd - len(batches)} "
           f"full-Q re-runs); launches K1 {launches[0]}, K3 {launches[1]}, K4 {launches[2]}, "
-          f"K6 {launches[3]}, K7 {launches[4]}; end to end {n_img / wall:.3f} img/s "
-          f"({wall:.3f} s wall for {n_img} images)")
-    if fwd < len(batches) or launches != [n * fwd for n in (*layers, 0)[:4]] + [k7]:
+          f"K6 {launches[3]}, K7 {launches[4]}, K8 {launches[5]}; end to end "
+          f"{n_img / wall:.3f} img/s ({wall:.3f} s wall for {n_img} images)")
+    if fwd < len(batches) or launches != ([n * fwd for n in (*layers, 0)[:4]]
+                                          + [k7, len(batches)]):
         raise AssertionError(f"{name}: launch counts do not match the forwards run")
     if not all(math.isfinite(v) for v in res.values()):
         raise AssertionError(f"{name}: non-finite metrics {res}")
@@ -3081,9 +3149,10 @@ def main() -> int:
     gates = [k1_gate, k2_gate, gate_render(dev, g), gate_resize_binarize(dev, g),
              k5_gate]
     k7_gate = gate_mask_stats(dev, g)
+    k8_gate = gate_label_pairs(dev, g)
     slice_f32(dev)
     train_f32_backward(dev)
-    (k1_eval, k3, k4, k7), k1_model, k5_model, _ = slice_bf16(dev, card)
+    (k1_eval, k3, k4, k7, k8), k1_model, k5_model, _ = slice_bf16(dev, card)
     k1_gate.update(k1_model)
     k5_gate.update(k5_model)
     dtype_map_phase(dev, card)
@@ -3127,17 +3196,19 @@ def main() -> int:
     for gate, n in zip((gates[0], gates[2], gates[3]), pipelined):
         gate["pipeline_launches"] = n
     print(f"main paths: train K1 {k1}, K2 {k2}; eval K1 {k1_eval}, K3 {k3}, "
-          f"K4 {k4}, K7 {k7}; BBBC eval "
-          f"K1, K3, K4, K7 {bbbc_eval}; BBBC entry points K1, K2, K3, K4 {bbbc_entry}; "
+          f"K4 {k4}, K7 {k7}, K8 {k8}; BBBC eval "
+          f"K1, K3, K4, K7, K8 {bbbc_eval}; BBBC entry points K1, K2, K3, K4 {bbbc_entry}; "
           f"sampled point modes K1, K2 {sampled}; entry points under the other settings "
           f"K1, K2, K3, K4 {settings_train}, their SWA evaluation K1, K3, K4 "
-          f"{settings_eval}; Swin-T eval K1, K3, K4, K6, K7 {swin_eval}, Swin-T train K1, K2, "
+          f"{settings_eval}; Swin-T eval K1, K3, K4, K6, K7, K8 {swin_eval}, Swin-T train "
+          f"K1, K2, "
           f"K3 {swin_train}, Swin-T entry points K1, K2, K3, K4, K6 {swin_entry}, their sweep "
-          f"K1, K3, K4, K6 {swin_sweep}; the other combinations' eval K1, K3, K4, K7 {alt_eval} "
-          "(the kernels line reports K1/K2 from train, K3/K4/K7 from the CVPPP eval, K6 from "
+          f"K1, K3, K4, K6 {swin_sweep}; the other combinations' eval K1, K3, K4, K7, K8 "
+          f"{alt_eval} (the kernels line reports K1/K2 from train, K3/K4/K7/K8 from the CVPPP "
+          "eval, K6 from "
           f"the Swin-T eval; K5 {k5}, from phase 8's main_torch.py run)")
-    launches = [k1, k2, k3, k4, k5, swin_eval[3], k7]
-    gates += [k6_gate, k7_gate]
+    launches = [k1, k2, k3, k4, k5, swin_eval[3], k7, k8]
+    gates += [k6_gate, k7_gate, k8_gate]
 
     meta = [("K1 ms_deform_attn forward", "pctrans_torch/csrc/msdeform_fwd.cu",
              "pctrans_tpu/ops/msdeform_pallas2.py:73"),
@@ -3157,7 +3228,11 @@ def main() -> int:
             ("K7 packed_mask_stats (library_ms: the f32 bmm of the cast masks; "
              "bf16_library_ms: a bf16 bmm with an f32 output)", "pctrans_torch/csrc/mask_stats.cu",
              "none: the JAX package leaves it to XLA "
-             "(pctrans_tpu/inference/device_postprocess.py:62-69)")]
+             "(pctrans_tpu/inference/device_postprocess.py:62-69)"),
+            ("K8 label_pairs (no library call: its twin is torch.bincount)",
+             "pctrans_torch/csrc/label_pairs.cu",
+             "none: the JAX package scores on the host "
+             "(pctrans_tpu/inference/metrics_bbbc.py, metrics_cvppp.py)")]
     keys = ("max_abs_err", "ms", "plain_ms", "device_ms", "bound_ms", "bound_by",
             "library_ms")
     kernels = [{"name": n, "route": "cuda", "source": s, "replaces": r,

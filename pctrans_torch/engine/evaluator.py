@@ -9,7 +9,9 @@ fetches the packed statistics, checks TOP_K's lossiness on the peak logits
 (a lossy batch runs again with all queries), clusters, and the merge and
 paint run on the device; the label map is the one array of pixels that
 comes back.  Scores: SBD and |DiC| (``metrics_cvppp``) for CVPPP; AJI,
-pixel F1, detection F1 and PQ (``metrics_bbbc``) for BBBC.
+pixel F1, detection F1 and PQ (``metrics_bbbc``) for BBBC, each from the
+image's (GT id, predicted id) table, which K8 (``ops/label_pairs.py``)
+builds beside the paint: the host makes no pass over the pixels to score.
 
 ``eval_cvppp``, ``test_bbbc`` and ``cvppp_submission`` label through
 :meth:`Evaluator._label_pipeline`, the JAX eval loops' five stages, each one
@@ -32,6 +34,7 @@ from ..inference.device_postprocess import (DevicePostprocessor, copy_to_host_as
                                             pipeline_batches, unpack_mask_stats)
 from ..inference.postprocess import merge_func
 from ..models import PCTransModel
+from ..ops.label_pairs import label_pairs
 from ..utils import tracing
 from .eval_step import make_eval_step
 
@@ -107,6 +110,23 @@ class Evaluator:
         self.forwards += 1
         return x, masks, copy_to_host_async(stats, self._copy_stream, "stats")
 
+    def _targets(self, batch: Dict[str, np.ndarray]):
+        """Stage 0, for a batch with a ``"label"``: its ground truth (and
+        CVPPP's foreground, as u8 ``fg > 0``) on their way to the device
+        beside the images, and the largest GT id; None for a batch with no
+        ``"label"``."""
+        if "label" not in batch:
+            return None
+        gt = np.ascontiguousarray(batch["label"])
+        if gt.dtype not in (np.int32, np.int16, np.uint16):
+            gt = gt.astype(np.int32)
+        fg = batch.get("fg")
+        if fg is not None:
+            fg = torch.from_numpy(np.greater(fg, 0).view(np.uint8)).to(self.device,
+                                                                      non_blocking=True)
+        return (torch.from_numpy(gt).to(self.device, non_blocking=True), fg,
+                max(int(gt.max()), 0))
+
     def _cluster(self, handles):
         """Stage 1: the TOP_K lossiness check on the landed statistics (a
         lossy batch runs again at full Q, fetched at once), the greedy
@@ -127,60 +147,91 @@ class Evaluator:
         merged, m_stats, clusters = pending
         return merged, copy_to_host_async(m_stats, self._copy_stream, "merged_stats"), clusters
 
+    def _finish(self, pending, targets):
+        """Stage 2: CVPPP's NMS and the paint; for a batch with targets, K8's
+        label-pair tables [B, G+1, Q+1] right after it on the same stream
+        (every painted id is at most the model's Q).  Starts the copy of
+        both to the host."""
+        labels = self.postprocessor.finish(pending)
+        if targets is None:
+            return copy_to_host_async(labels, self._copy_stream, "labels")
+        gt, fg, max_gt = targets
+        pairs = label_pairs(labels, gt, max_gt, self.num_queries, fg)
+        return copy_to_host_async((labels, pairs), self._copy_stream, "labels")
+
+    @staticmethod
+    def _collect(copy):
+        """Stage 4: the landed label maps and, where K8 ran, the tables,
+        each of which holds every pixel of its image (an id out of range
+        was not counted)."""
+        landed = copy.wait()
+        if isinstance(landed, torch.Tensor):
+            return landed.numpy(), None
+        labels, pairs = (t.numpy() for t in landed)
+        if (pairs.sum(axis=(1, 2)) != labels[0].size).any():
+            raise ValueError("label-pair table: a ground-truth or predicted id lies "
+                             f"outside [0, {pairs.shape[1] - 1}] x [0, {pairs.shape[2] - 1}]")
+        return labels, pairs
+
     def _label_pipeline(self, batches: Iterable[Dict[str, np.ndarray]]
                         ) -> Iterator[Tuple[Dict[str, np.ndarray], np.ndarray]]:
         """(batch, int16 label maps [B, H, W]) for each batch, in order,
-        through five stages one batch apart: dispatch; lossiness check,
-        clustering and the device tail; CVPPP's NMS and the paint, which
-        starts the label map's copy; a pass-through lag that gives that copy
-        a batch interval to land; collect.  Each stage but the lag is span
-        ``eval.<stage>`` keyed by the batch's index."""
+        through five stages one batch apart: dispatch (and the ground
+        truth's copy); lossiness check, clustering and the device tail;
+        CVPPP's NMS, the paint and K8, which start the copy of the label
+        maps and tables; a pass-through lag that gives that copy a batch
+        interval to land; collect.  Each stage but the lag is span
+        ``eval.<stage>`` keyed by the batch's index.  A batch with a
+        ``"label"`` comes back with its tables under ``"_label_pairs"``
+        (i32 [B, G+1, Q+1], ``ops/label_pairs.py``), beside the loaders'
+        ``"_num_valid"``."""
         def staged(name, fn):
             def stage(kb, value):
                 with tracing.span(name, key=kb[0]):
                     return fn(kb[1], value)
             return stage
 
-        for (_, batch), labels in pipeline_batches(
+        for (_, batch), (labels, pairs) in pipeline_batches(
                 enumerate(batches),
-                staged("eval.dispatch", lambda b, _: self._dispatch(b["image"])),
-                staged("eval.cluster", lambda b, h: self._cluster(h)),
-                staged("eval.finish", lambda b, p: copy_to_host_async(
-                    self.postprocessor.finish(p), self._copy_stream, "labels")),
+                staged("eval.dispatch", lambda b, _: (self._dispatch(b["image"]),
+                                                      self._targets(b))),
+                staged("eval.cluster", lambda b, h: (self._cluster(h[0]), h[1])),
+                staged("eval.finish", lambda b, p: self._finish(*p)),
                 lambda kb, lab: lab,
-                staged("eval.collect", lambda b, lab: lab.wait().numpy())):
+                staged("eval.collect", lambda b, lab: self._collect(lab))):
+            if pairs is not None:
+                batch["_label_pairs"] = pairs
             yield batch, labels
 
     def eval_cvppp(self, batches: Iterable[Dict[str, np.ndarray]]
                    ) -> Dict[str, float]:
-        """Mean SBD and |DiC| over batches {"image", "label"[, "fg"]}.  A
-        batch padded to full size (``_num_valid``, ``data/build.py``) is
-        scored on its valid rows only."""
+        """Mean SBD and |DiC| over batches {"image", "label"[, "fg"]}, from
+        each image's label-pair table (its predicted ids zeroed outside
+        ``fg``).  A batch padded to full size (``_num_valid``,
+        ``data/build.py``) is scored on its valid rows only."""
         sbd_all, diff_all, n = 0.0, 0.0, 0
         for k, (batch, labels) in enumerate(self._label_pipeline(batches)):
             with tracing.span("eval.score", key=k):
                 for b in range(int(batch.get("_num_valid", labels.shape[0]))):
-                    seg = labels[b].astype(np.uint16)
-                    if "fg" in batch:
-                        seg = seg * (batch["fg"][b] > 0).astype(np.uint16)
-                    gt = batch["label"][b].astype(np.uint16)
-                    sbd_all += mc.SymmetricBestDice(seg, gt)
-                    diff_all += abs(mc.DiffFGLabels(seg, gt))
+                    joint = batch["_label_pairs"][b].T          # (predicted, GT)
+                    sbd_all += mc.symmetric_best_dice_from_table(joint)
+                    diff_all += abs(mc.diff_fg_labels_from_table(joint))
                     n += 1
         return {"SBD": sbd_all / max(n, 1), "absDiffFG": diff_all / max(n, 1)}
 
     def test_bbbc(self, batches: Iterable[Dict[str, np.ndarray]]) -> Dict[str, float]:
         """Mean and std of AJI, pixel F1, detection F1 and PQ (match IoU
-        0.5) over batches {"image", "label"}, on the valid rows of each."""
+        0.5) over batches {"image", "label"}, on the valid rows of each,
+        from each image's label-pair table with both maps' ids remapped
+        (``remap_table``)."""
         scores = {"AJI": [], "F1": [], "detF1": [], "PQ": []}
         for k, (batch, labels) in enumerate(self._label_pipeline(batches)):
             with tracing.span("eval.score", key=k):
                 for b in range(int(batch.get("_num_valid", labels.shape[0]))):
-                    gt = mb.remap_label(batch["label"][b], by_size=False)
-                    pred = mb.remap_label(labels[b], by_size=False)
-                    scores["AJI"].append(mb.agg_jc_index(gt, pred))
-                    scores["F1"].append(mb.pixel_f1(gt, pred))
-                    dq, _, pq = mb.get_fast_pq(gt, pred, match_iou=0.5)[0]
+                    joint = mb.remap_table(batch["_label_pairs"][b])
+                    scores["AJI"].append(mb.agg_jc_index_from_table(joint))
+                    scores["F1"].append(mb.pixel_f1_from_table(joint))
+                    dq, _, pq = mb.fast_pq_from_table(joint, match_iou=0.5)[0]
                     scores["detF1"].append(dq)
                     scores["PQ"].append(pq)
         res = {}

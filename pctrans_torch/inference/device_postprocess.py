@@ -14,7 +14,9 @@ statistics cross to the host:
 
 Host <-> device traffic per batch: the packed [B, K, K+1(+1)] statistics
 down, [B, K, K] membership (and [B, K] paint order) up, CVPPP's merged
-statistics down, the [B, H, W] int16 label map down.
+statistics down, the [B, H, W] int16 label map down (in the evaluator's
+label pipeline, with the scored batches' label-pair tables beside it,
+``ops/label_pairs.py``).
 
 Exactness: areas, intersections and member counts are the true integers
 (all below 2^24).  On the card K7 multiplies the u8 0/1 masks as u8 on the
@@ -215,35 +217,40 @@ class DevicePostprocessor:
 
 
 class HostCopy:
-    """A device-to-host copy in flight: ``wait()`` returns the host tensor.
+    """A device-to-host copy in flight of a tensor or a tuple of tensors:
+    ``wait()`` returns the host tensor (or the tuple of them).
 
-    On a CUDA tensor the copy goes into a pinned buffer of its own (one per
+    On CUDA tensors each copy goes into a pinned buffer of its own (one per
     call, so no buffer is reused while a copy into it is in flight) on the
     side ``stream``, which first waits for the work queued so far on the
     current stream; ``record_stream`` keeps the caching allocator from
-    handing the source's memory out before the copy has read it, and the
-    consumer waits on the event recorded after the copy, never on the whole
-    device.  On the CPU the copy is done at once and there is no event.
-    ``wait()`` is span ``wait.<name>``."""
+    handing a source's memory out before the copy has read it, and the
+    consumer waits on the one event recorded after the copies, never on the
+    whole device.  On the CPU the copy is done at once and there is no
+    event.  ``wait()`` is span ``wait.<name>``."""
 
-    def __init__(self, t: torch.Tensor, stream: Optional["torch.cuda.Stream"] = None,
+    def __init__(self, t, stream: Optional["torch.cuda.Stream"] = None,
                  name: str = "host_copy"):
         self.event = None
         self.name = name
-        if not t.is_cuda:
-            self.host = t.detach().clone()
-            return
-        if stream is None:
-            raise ValueError("an asynchronous copy of a CUDA tensor needs a side stream")
-        self.host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
-        stream.wait_stream(torch.cuda.current_stream(t.device))
-        with torch.cuda.stream(stream):
-            self.host.copy_(t, non_blocking=True)
-            self.event = torch.cuda.Event()
-            self.event.record(stream)
-        t.record_stream(stream)
+        ts = (t,) if isinstance(t, torch.Tensor) else tuple(t)
+        if not ts[0].is_cuda:
+            host = tuple(x.detach().clone() for x in ts)
+        else:
+            if stream is None:
+                raise ValueError("an asynchronous copy of a CUDA tensor needs a side stream")
+            host = tuple(torch.empty(x.shape, dtype=x.dtype, pin_memory=True) for x in ts)
+            stream.wait_stream(torch.cuda.current_stream(ts[0].device))
+            with torch.cuda.stream(stream):
+                for h, x in zip(host, ts):
+                    h.copy_(x, non_blocking=True)
+                self.event = torch.cuda.Event()
+                self.event.record(stream)
+            for x in ts:
+                x.record_stream(stream)
+        self.host = host[0] if isinstance(t, torch.Tensor) else host
 
-    def wait(self) -> torch.Tensor:
+    def wait(self):
         with tracing.span("wait." + self.name):
             if self.event is not None:
                 tracing.count("host_syncs")
@@ -251,11 +258,10 @@ class HostCopy:
         return self.host
 
 
-def copy_to_host_async(t: torch.Tensor,
-                       stream: Optional["torch.cuda.Stream"] = None,
+def copy_to_host_async(t, stream: Optional["torch.cuda.Stream"] = None,
                        name: str = "host_copy") -> HostCopy:
-    """Start ``t``'s copy to the host on ``stream`` (:class:`HostCopy`;
-    its wait is span ``wait.<name>``)."""
+    """Start the copy of ``t`` (a tensor or a tuple of tensors) to the host
+    on ``stream`` (:class:`HostCopy`; its wait is span ``wait.<name>``)."""
     return HostCopy(t, stream, name)
 
 

@@ -4,7 +4,12 @@ pixel F1 and fast PQ.
 The same semantics as ``pctrans_tpu/inference/metrics_bbbc.py:23-162``
 (reference connectomics/inference/evaluation/metrics_bbbc.py: agg_jc_index:11,
 pixel_f1:72, get_fast_pq:120, remap_label:216), matching quirks included,
-with the pixel work in one contingency table:
+with the pixel work in one contingency table, the (GT id, predicted id)
+histogram of the image.  Each score has a core that takes that table
+(``*_from_table``): the evaluator's tables are built on the card
+(``ops/label_pairs.py``, K8), and :func:`remap_table` drops their empty ids
+as :func:`remap_label` on both maps would.  The map-taking functions are
+:func:`_contingency` and the core:
 
 * AJI matches each GT instance, in id order, to the prediction of best
   IoU, treating predictions already used as zero intersection with union
@@ -45,51 +50,86 @@ def remap_label(pred: np.ndarray, by_size: bool = False) -> np.ndarray:
     return new_pred
 
 
-def agg_jc_index(gt_ins: np.ndarray, pred: np.ndarray) -> float:
-    """Aggregated Jaccard index of label maps with contiguous ids (call
-    :func:`remap_label` first, as the eval loop does)."""
-    gt_ins, pred = np.asarray(gt_ins), np.asarray(pred)
-    n_gt, n_pred = int(gt_ins.max()), int(pred.max())
-    if n_gt == 0:
+def remap_table(joint: np.ndarray) -> np.ndarray:
+    """The table of ``remap_label(gt)`` against ``remap_label(pred)`` from
+    the table of the raw maps: the empty rows and columns past 0 dropped,
+    in order (``by_size=False`` keeps the ids' order)."""
+    joint = np.asarray(joint)
+    rows = np.flatnonzero(joint.sum(axis=1)[1:]) + 1
+    cols = np.flatnonzero(joint.sum(axis=0)[1:]) + 1
+    return joint[np.ix_(np.r_[0, rows], np.r_[0, cols])]
+
+
+def agg_jc_index_from_table(joint: np.ndarray) -> float:
+    """:func:`agg_jc_index` from the (gt, pred) table.  The greedy match
+    visits only each GT row's nonzero, unused entries: every other IoU is
+    zero, so the first maximum is among them unless all are zero, and then
+    the argmax uses up the first prediction."""
+    joint = np.asarray(joint, np.float64)
+    n_gt, n_pred = joint.shape[0] - 1, joint.shape[1] - 1
+    if n_gt == 0 or n_pred == 0:
         return 0.0
-    joint = _contingency(gt_ins, pred)
-    gt_sizes, pred_sizes = joint.sum(axis=1), joint.sum(axis=0)
-    used = np.zeros(n_pred + 1, dtype=bool)
+    gt_sizes, pred_sizes = joint.sum(axis=1).tolist(), joint.sum(axis=0)
+    sizes = pred_sizes.tolist()
+    rows, cols = np.nonzero(joint[1:, 1:])
+    inters = joint[1:, 1:][rows, cols].tolist()
+    starts = np.searchsorted(rows, np.arange(n_gt + 1)).tolist()
+    cols = (cols + 1).tolist()
+    used = [False] * (n_pred + 1)
     c = u = 0.0
     for g in range(1, n_gt + 1):
         m_size = gt_sizes[g]
-        if n_pred == 0:
-            u += m_size
-            continue
-        inter = joint[g, 1:].copy()
-        union = m_size + pred_sizes[1:] - inter
-        inter = np.where(used[1:], 0.0, inter)
-        union = np.where(used[1:], m_size, union)
-        iou = np.where(union > 0, inter / np.maximum(union, 1e-12), 0.0)
-        hit = int(np.argmax(iou))          # the first maximum on ties
-        c += inter[hit]
-        u += union[hit]
-        used[hit + 1] = True
-    u += pred_sizes[1:][~used[1:]].sum()
+        best, hit_inter, hit_union, hit = 0.0, 0.0, 0.0, 0
+        for k in range(starts[g - 1], starts[g]):
+            p = cols[k]
+            if used[p]:
+                continue
+            inter = inters[k]
+            union = m_size + sizes[p] - inter
+            iou = inter / union
+            if iou > best:
+                best, hit_inter, hit_union, hit = iou, inter, union, p
+        if hit == 0:                      # every IoU zero: the first prediction
+            hit, hit_union = 1, m_size if used[1] else m_size + sizes[1]
+        c += hit_inter
+        u += hit_union
+        used[hit] = True
+    u += pred_sizes[1:][~np.asarray(used[1:])].sum()
     return float(c / u) if u > 0 else 0.0
+
+
+def agg_jc_index(gt_ins: np.ndarray, pred: np.ndarray) -> float:
+    """Aggregated Jaccard index of label maps with contiguous ids (call
+    :func:`remap_label` first, as the eval loop does)."""
+    return agg_jc_index_from_table(_contingency(gt_ins, pred))
+
+
+def pixel_f1_from_table(joint: np.ndarray) -> float:
+    """:func:`pixel_f1` from the (gt, pred) table."""
+    joint = np.asarray(joint)
+    tp = float(joint[1:, 1:].sum())
+    fp = float(joint[0, 1:].sum())
+    fn = float(joint[1:, 0].sum())
+    denom = 2 * tp + fp + fn
+    return float(2 * tp / denom) if denom > 0 else 0.0
 
 
 def pixel_f1(gt_ins: np.ndarray, pred_ins: np.ndarray) -> float:
     """F1 of the foreground/background split."""
-    gt_fg, pred_fg = np.asarray(gt_ins) > 0, np.asarray(pred_ins) > 0
-    tp = float(np.sum(gt_fg & pred_fg))
-    fp = float(np.sum(~gt_fg & pred_fg))
-    fn = float(np.sum(gt_fg & ~pred_fg))
-    denom = 2 * tp + fp + fn
-    return float(2 * tp / denom) if denom > 0 else 0.0
+    return pixel_f1_from_table(_contingency(gt_ins, pred_ins))
 
 
 def get_fast_pq(true: np.ndarray, pred: np.ndarray, match_iou: float = 0.5):
     """Panoptic-quality statistics ``[dq, sq, pq]`` and the pairing
     ``[paired_true, paired_pred, unpaired_true, unpaired_pred]``."""
+    return fast_pq_from_table(_contingency(true, pred), match_iou)
+
+
+def fast_pq_from_table(joint: np.ndarray, match_iou: float = 0.5):
+    """:func:`get_fast_pq` from the (gt, pred) table."""
     if match_iou < 0.0:
         raise ValueError(f"match_iou {match_iou} < 0")
-    joint = _contingency(true, pred)
+    joint = np.asarray(joint, np.float64)
     n_gt, n_pred = joint.shape[0] - 1, joint.shape[1] - 1
     if n_gt > 0 and n_pred > 0:
         inter = joint[1:, 1:]

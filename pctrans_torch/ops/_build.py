@@ -9,10 +9,11 @@ edited source rebuilds.  A missing ``nvcc`` or a failed build raises
 ``RuntimeError``: there is no fallback.
 
 The wrappers (``ops/msdeform.py``, ``render.py``, ``resize_binarize.py``,
-``window_attn.py``, ``mask_stats.py``) ask :func:`use_kernel` whether to
-run the kernel or the plain twin, and launch through :func:`launch`.  Each
-C entry point launches on the stream it is given and returns
-``cudaGetLastError()``; :func:`launch` raises on a non-zero code.
+``window_attn.py``, ``mask_stats.py``, ``label_pairs.py``) ask
+:func:`use_kernel` whether to run the kernel or the plain twin, and launch
+through :func:`launch`.  Each C entry point launches on the stream it is
+given and returns ``cudaGetLastError()``; :func:`launch` raises on a
+non-zero code.
 """
 
 from __future__ import annotations
@@ -66,6 +67,8 @@ _SIGNATURES = {
     # masks, extra (or NULL), ws, out, B, K, P, tiles, chunks,
     # stages_per_chunk, stream
     "pctrans_mask_stats": [_P] * 4 + [_I, _I, ctypes.c_longlong] + [_I] * 3 + [_P],
+    # labels, gt, fg (or NULL), table, B, P, max_gt, max_pred, gt_kind, stream
+    "pctrans_label_pairs": [_P] * 4 + [_I, ctypes.c_longlong, _I, _I, _I, _P],
 }
 
 

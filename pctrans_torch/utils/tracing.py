@@ -27,8 +27,10 @@ debug mode, which is on while a span is open on a CUDA machine.
 eval forward's CUDA graphs (``models/graphs.py``): ``graph_captures``,
 one per input shape captured, and ``graph_replays``, one per forward a
 replay served; ``window_attn_kernel``, one per launch of Swin's fused
-window attention (K6, ``ops/window_attn.py``); and ``mask_stats_kernel``,
-one per launch of the masks' statistics (K7, ``ops/mask_stats.py``).
+window attention (K6, ``ops/window_attn.py``); ``mask_stats_kernel``,
+one per launch of the masks' statistics (K7, ``ops/mask_stats.py``); and
+``label_pairs_kernel``, one per launch of the scored images' label-pair
+tables (K8, ``ops/label_pairs.py``).
 
 Spans are opened from one thread, the loop's.  A counter from another
 thread goes to the innermost open span: autograd's device threads run the
@@ -51,7 +53,7 @@ from torch.autograd import profiler as _profiler
 
 PREFIX = "pctrans."
 COUNTERS = ("host_syncs", "graph_captures", "graph_replays", "window_attn_kernel",
-            "mask_stats_kernel")
+            "mask_stats_kernel", "label_pairs_kernel")
 SYNC_WARNING = "called a synchronizing CUDA operation"
 PROTOTYPE_WARNING = "Synchronization debug mode is a prototype"   # at each mode change
 
